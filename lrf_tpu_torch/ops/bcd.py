@@ -1,0 +1,233 @@
+"""Quantization-aware matrix factorization (QMF) by block coordinate descent.
+
+PyTorch port of `lrf_tpu/ops/bcd.py:42-325`: factor a patch-stack matrix
+``X (M x N)`` as ``X ~ w0 + w1 * (U @ V^T)`` with integer-bounded factors.
+
+- SVD initialization with sqrt(s)-balanced factors and the clip-minimising
+  sign choice per rank component (`_finish_init`).
+- Per-rank-column Gauss-Seidel sweeps. The exclusion
+  ``U[:, !=r] @ B[!=r, r]`` is computed as ``U @ B[:, r] - U[:, r] * B[r, r]``.
+- Integer projection: round half to even (`torch.round`, like `jnp.round`),
+  then clamp to ``[ceil(lo), floor(hi)]``.
+
+On CUDA tensors with ``factor=(0, 1)`` and no regularisation (the codec's
+only mode), `bcd_from_init` runs the whole sweep loop in the hand-written
+kernel of `lrf_tpu_torch.ops.bcd_kernel`. Every other mode, and every CPU
+tensor, runs the plain sweeps below.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+from lrf_tpu_torch.ops.common import relative_error, safe_divide, soft_thresholding
+from lrf_tpu_torch.ops.svd import pad_rank, shared_truncated_svd, svd_balanced_factors
+
+_EPS = 1e-16
+
+
+def make_project(bounds: tuple[Optional[float], Optional[float]]) -> Callable:
+    """Integer projection: round half to even, then clamp to [ceil(lo), floor(hi)]."""
+    lo, hi = bounds
+    if lo is None and hi is None:
+        return torch.round
+    lo_i, hi_i = math.ceil(lo), math.floor(hi)
+
+    def project(x):
+        return torch.clamp(torch.round(x), lo_i, hi_i)
+
+    return project
+
+
+def svd_init(
+    x: torch.Tensor,
+    rank: int,
+    num_levels: Optional[float] = None,
+    method: str = "gram",
+    bounds: tuple[Optional[float], Optional[float]] = (None, None),
+):
+    """QMF initializer: `(u, v, w)` with `w = [w0; w1]` stacked on dim -2.
+
+    With `bounds`, each rank component's `(u_r, v_r)` pair takes the sign
+    that clips less under the integer projection (see `lrf_tpu.ops.bcd.svd_init`).
+    """
+    u, v = svd_balanced_factors(x, rank, method=method)
+    return _finish_init(x, u, v, num_levels, bounds)
+
+
+def svd_init_shared(stacks, ranks, num_levels=None, bounds=(None, None), method="gram"):
+    """`svd_init` for several same-N patch stacks sharing ONE batched eigh.
+
+    Returns a list of `(u, v, w)` triples, each equal to that stack's own
+    `svd_init`.
+    """
+    r_effs = [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)]
+    triplets = shared_truncated_svd(stacks, r_effs, method=method)
+    out = []
+    for x, rank, (u, s, v) in zip(stacks, ranks, triplets):
+        rs = torch.sqrt(s)
+        u, v = pad_rank(u * rs[..., None, :], v * rs[..., None, :], rank)
+        out.append(_finish_init(x, u, v, num_levels, bounds))
+    return out
+
+
+def _finish_init(x, u, v, num_levels, bounds):
+    """Clip-minimising sign choice, optional num_levels rescale, affine `w`."""
+    lo, hi = bounds
+    if lo is not None and hi is not None:
+        lo_i, hi_i = math.ceil(lo), math.floor(hi)
+
+        def clip_penalty(z):
+            over = torch.clamp(z - hi_i, min=0.0)
+            under = torch.clamp(lo_i - z, min=0.0)
+            return torch.sum(over * over + under * under, dim=-2, keepdim=True)
+
+        pen_pos = clip_penalty(u) + clip_penalty(v)
+        pen_neg = clip_penalty(-u) + clip_penalty(-v)
+        sign = torch.where(pen_neg < pen_pos, -1.0, 1.0).to(u.dtype)
+        u = u * sign
+        v = v * sign
+    w0 = torch.zeros_like(x[..., 0:1, 0:1])
+    w1 = torch.ones_like(w0)
+    if num_levels:
+        def span(z):
+            return torch.amax(z, dim=(-2, -1), keepdim=True) - torch.amin(z, dim=(-2, -1), keepdim=True)
+
+        scale_u = span(u) / num_levels
+        scale_v = span(v) / num_levels
+        u = u / scale_u
+        v = v / scale_v
+        w1 = (scale_u * scale_v) * w1
+    return u, v, torch.cat([w0, w1], dim=-2)
+
+
+def update_columns(a, b, u, l1: float, l2: float, project: Callable) -> torch.Tensor:
+    """One Gauss-Seidel pass over all rank columns of `u`.
+
+    `a = X @ V (..., M, R)`, `b = V^T V (..., R, R)`. Returns a new tensor;
+    `u` is left unchanged.
+    """
+    u = u.clone()
+    for r in range(u.shape[-1]):
+        b_col = b[..., :, r : r + 1]
+        b_rr = b[..., r : r + 1, r : r + 1]
+        u_r = u[..., r : r + 1]
+        term2 = torch.matmul(u, b_col) - u_r * b_rr
+        numerator = soft_thresholding(a[..., r : r + 1] - term2, l1)
+        u[..., r : r + 1] = project((numerator + _EPS) / (b_rr + l2 + _EPS))
+    return u
+
+
+def update_w(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Affine refit `x ~ w0 + w1 * (u v^T)` by the 2x2 normal equations."""
+    z = torch.matmul(u, v.transpose(-1, -2)).reshape(*u.shape[:-2], -1)
+    y = x.reshape(*x.shape[:-2], -1)
+    n = z.shape[-1]
+    sz = torch.sum(z, dim=-1)
+    szz = torch.sum(z * z, dim=-1)
+    sy = torch.sum(y, dim=-1)
+    szy = torch.sum(z * y, dim=-1)
+    det = n * szz - sz * sz
+    det = torch.where(torch.abs(det) < _EPS, torch.full_like(det, _EPS), det)
+    w0 = (szz * sy - sz * szy) / det
+    w1 = (n * szy - sz * sy) / det
+    return torch.stack([w0, w1], dim=-1)[..., None]
+
+
+def bcd_sweep(
+    x, u, v, w,
+    factor: tuple[int, ...] = (0, 1, 2),
+    project: Callable = torch.round,
+    l2: tuple[float, float] = (0.0, 0.0),
+    l1_ratio: float = 0.0,
+):
+    """One full coordinate-descent sweep; `factor` picks the blocks: 0 u, 1 v, 2 w."""
+    m, n = x.shape[-2], x.shape[-1]
+    l1_u = l2[0] * l1_ratio * n
+    l1_v = l2[1] * l1_ratio * m
+    l2_u = l2[0] * (1 - l1_ratio) * n
+    l2_v = l2[1] * (1 - l1_ratio) * m
+    w0 = w[..., 0:1, :]
+    w1 = w[..., 1:2, :]
+    if 0 in factor:
+        xw = safe_divide(x - w0, w1, _EPS)
+        a = torch.matmul(xw, v)
+        b = torch.matmul(v.transpose(-1, -2), v)
+        u = update_columns(a, b, u, l1_u, l2_u, project)
+    if 1 in factor:
+        xw = safe_divide(x.transpose(-1, -2) - w0, w1, _EPS)
+        a = torch.matmul(xw, u)
+        b = torch.matmul(u.transpose(-1, -2), u)
+        v = update_columns(a, b, v, l1_v, l2_v, project)
+    if 2 in factor:
+        w = update_w(x, u, v)
+    return u, v, w
+
+
+def qmf_decompose(
+    x: torch.Tensor,
+    rank: int,
+    num_iters: int = 10,
+    bounds: tuple[Optional[float], Optional[float]] = (None, None),
+    factor: tuple[int, ...] = (0, 1),
+    l2: tuple[float, float] = (0.0, 0.0),
+    l1_ratio: float = 0.0,
+    num_levels: Optional[float] = None,
+    init_method: str = "gram",
+):
+    """Full QMF decomposition: `x (..., M, N)` -> integer-valued float
+    `u (..., M, R)`, `v (..., N, R)` and affine `w (..., 2, 1)`."""
+    x = x.to(torch.float32)
+    init = svd_init(x, rank, num_levels=num_levels, method=init_method, bounds=bounds)
+    return bcd_from_init(
+        x, init, num_iters=num_iters, bounds=bounds, factor=factor, l2=l2, l1_ratio=l1_ratio
+    )
+
+
+def bcd_from_init(
+    x: torch.Tensor,
+    init,
+    num_iters: int = 10,
+    bounds: tuple[Optional[float], Optional[float]] = (None, None),
+    factor: tuple[int, ...] = (0, 1),
+    l2: tuple[float, float] = (0.0, 0.0),
+    l1_ratio: float = 0.0,
+):
+    """The BCD sweep loop of `qmf_decompose` from a precomputed `(u, v, w)`."""
+    x = x.to(torch.float32)
+    u, v, w = init
+    if x.is_cuda and tuple(factor) == (0, 1) and tuple(l2) == (0.0, 0.0):
+        from lrf_tpu_torch.ops.bcd_kernel import bcd
+
+        # w stays fixed under factor=(0, 1), so both sweeps see the same
+        # affinely normalised X; the kernel runs on it directly.
+        xw = safe_divide(x - w[..., 0:1, :], w[..., 1:2, :], _EPS)
+        lead = x.shape[:-2]
+        u, v = bcd(
+            xw.reshape(-1, *x.shape[-2:]).contiguous(),
+            u.reshape(-1, *u.shape[-2:]),
+            v.reshape(-1, *v.shape[-2:]),
+            num_iters=num_iters,
+            bounds=bounds,
+        )
+        return u.reshape(*lead, *u.shape[-2:]), v.reshape(*lead, *v.shape[-2:]), w
+    project = make_project(bounds)
+    for _ in range(num_iters):
+        u, v, w = bcd_sweep(x, u, v, w, factor=factor, project=project, l2=l2, l1_ratio=l1_ratio)
+    return u, v, w
+
+
+def qmf_reconstruct(u: torch.Tensor, v: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`u @ v^T`, optionally affine-shifted."""
+    out = torch.matmul(u.to(torch.float32), v.to(torch.float32).transpose(-1, -2))
+    if w is None:
+        return out
+    return w[..., 0:1, :] + w[..., 1:2, :] * out
+
+
+def qmf_loss(x, u, v, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Relative reconstruction error."""
+    return relative_error(x, qmf_reconstruct(u, v, w))

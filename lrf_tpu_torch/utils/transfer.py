@@ -1,0 +1,57 @@
+"""Device selection and host <-> device transfers.
+
+- `resolve_device` turns an entry point's `device=` into a `torch.device`
+  and raises when CUDA is asked for and absent: nothing silently runs on
+  the CPU.
+- `to_host` is the port of `lrf_tpu/utils/transfer.py:57`.
+- `state_from_numpy` carries the JAX package's factor state (numpy arrays
+  in its `(B, M, R)` / `(B, N, R)` layout) into float32 tensors, so both
+  packages can start from one init.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_CUDA_READY = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """`torch.device` for an entry point; raises if CUDA is asked and absent."""
+    global _CUDA_READY
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} asked for, but CUDA is not available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        if not _CUDA_READY:
+            # The init's Gram and X V products and the decode's U V^T must
+            # run in full float32, never TF32.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            _CUDA_READY = True
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def to_host(x) -> np.ndarray:
+    """Numpy copy (or view) of a tensor on any device."""
+    if isinstance(x, np.ndarray):
+        return x
+    return x.detach().cpu().numpy()
+
+
+def state_from_numpy(u, v, w=None, *, device):
+    """Factor state from numpy arrays (JAX layout) as float32 tensors on `device`.
+
+    Returns `(u, v)`, or `(u, v, w)` when `w` is given.
+    """
+    device = resolve_device(device)
+    out = [torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device) for a in (u, v)]
+    if w is not None:
+        out.append(torch.from_numpy(np.array(w, dtype=np.float32, copy=True)).to(device))
+    return tuple(out)

@@ -1,0 +1,130 @@
+"""Guards of the port's boundaries.
+
+- `lrf_tpu_torch` and `chip_smoke.py` import neither JAX nor `lrf_tpu`.
+- Entry points run on the GPU unless asked for the CPU: with no CUDA they
+  raise instead of carrying on on the CPU.
+- The kernel wrapper on CPU tensors runs the plain version and launches
+  nothing.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lrf_tpu_torch
+from lrf_tpu_torch.ops import bcd_kernel
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_pulls_in_no_jax_and_no_lrf_tpu():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import lrf_tpu_torch\n"
+        "import lrf_tpu_torch.ops.bcd_kernel, lrf_tpu_torch.parallel.encode, lrf_tpu_torch.parallel.decode\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def _sources():
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "lrf_tpu_torch")):
+        for f in files:
+            if f.endswith((".py", ".cu")):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+# An import of jax, jaxlib or lrf_tpu (`\b` stops `lrf_tpu` from matching `lrf_tpu_torch`).
+_FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(import\s+[\w., ]*\b(jax|jaxlib|lrf_tpu)\b|from\s+(jax|jaxlib|lrf_tpu)\b)"
+    r"|(import_module|__import__)\(\s*[\"'](jax|jaxlib|lrf_tpu)\b",
+    re.M,
+)
+
+
+@pytest.mark.parametrize(
+    "line,bad",
+    [
+        ("import jax", True),
+        ("import numpy as np, jax.numpy as jnp", True),
+        ("    from jax import lax", True),
+        ("from lrf_tpu.models.container import encode_tensor", True),
+        ("import lrf_tpu", True),
+        ("mod = importlib.import_module('lrf_tpu.ops.bcd')", True),
+        ("import lrf_tpu_torch", False),
+        ("from lrf_tpu_torch.ops import bcd", False),
+        ("# Port of `lrf_tpu/ops/bcd.py`, not an import", False),
+    ],
+)
+def test_import_scan_pattern(line, bad):
+    assert bool(_FORBIDDEN_IMPORT.search(line)) == bad
+
+
+def test_sources_name_no_jax_and_no_lrf_tpu_import():
+    offenders = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        if _FORBIDDEN_IMPORT.search(text):
+            offenders.append(path)
+    assert not offenders, offenders
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal path needs a host without it")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=tmp_path, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "state"])
+def test_default_device_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal path needs a host without it")
+    img = np.zeros((3, 16, 16), np.uint8)
+    stream = lrf_tpu_torch.qmf_encode(img, quality=10, device="cpu")
+    calls = {
+        "qmf_encode": lambda: lrf_tpu_torch.qmf_encode(img, quality=10),
+        "qmf_decode": lambda: lrf_tpu_torch.qmf_decode(stream),
+        "encode_batch": lambda: lrf_tpu_torch.sharded_qmf_encode_batch(img[None], quality=10),
+        "decode_batch": lambda: lrf_tpu_torch.sharded_qmf_decode_batch([stream]),
+        "state": lambda: lrf_tpu_torch.state_from_numpy(np.zeros((1, 4, 2)), np.zeros((1, 4, 2)), device="cuda"),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_wrapper_on_cpu_launches_nothing():
+    before = bcd_kernel.KERNEL.launches
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 64, 64)).astype(np.float32))
+    u0 = torch.zeros(2, 64, 3)
+    v0 = torch.ones(2, 64, 3)
+    u, v = bcd_kernel.bcd(x, u0, v0, num_iters=2)
+    ur, vr = bcd_kernel.bcd_reference(x, u0, v0, num_iters=2)
+    assert torch.equal(u, ur) and torch.equal(v, vr)
+    assert bcd_kernel.KERNEL.launches == before == 0
+    assert bcd_kernel.KERNEL._lib is None  # nothing was built or loaded
+
+
+def test_cuda_tests_skip_with_a_reason():
+    # The kernel's own test needs a GPU; on this host it must skip, naming it.
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    import test_torch_kernel
+
+    with pytest.raises(pytest.skip.Exception, match="CUDA device"):
+        test_torch_kernel.test_kernel_matches_plain_on_gpu(1, 64, 64, 1)
