@@ -7,7 +7,12 @@
 //   K2  _bcd_stream_kernel   (launched by bcd_pallas, X streamed in M-tiles)
 //   K3  _legacy_bcd_kernel   (launched by _bcd_pallas_legacy, M >= 16384)
 // The three variants exist only for the TPU's VMEM budget and 8-aligned
-// sublane starts; this one kernel covers every shape they covered.
+// sublane starts; this one kernel covers every shape they covered. Since the
+// cluster kernel of bcd_cluster.cu took over the codec's patch width (N = 64,
+// R <= 16), this kernel runs the wider state: N != 64 or R > 16 (RGB patches
+// at high quality, the no-patch codec), as ops/bcd_kernel.py::launch_plan
+// picks by shape. It stays available at every shape for same-run
+// comparisons.
 //
 // Function. For image b with X (M, N), U (M, R), V (N, R), each sweep does
 //   B = V^T V;  for every row m of U, with a = X[m, :] V, for r = 0..R-1:
@@ -38,9 +43,11 @@
 // and one read of X. At the codec's bench shape (64 x 6144 x 64, R = 6, plus
 // the merged chroma 128 x 1536 x 64, R = 3) the essential work over 10 sweeps
 // is about 7.5 GFLOP of f32 FMA (~0.11 ms at 67 TFLOP/s) against 151 MB of X
-// read once (~45 us at 3.35 TB/s), so the bound is the f32 rate. This first
-// kernel uses one SM per image and runs each row's Gauss-Seidel chain on one
-// thread; PERF.md holds its measured times against that bound.
+// read once (~45 us at 3.35 TB/s), so the bound is the f32 rate. This
+// kernel uses one SM per image, re-reads X from device memory every sweep
+// and, once V and the Grams spill to global scratch (N = 192, 768), reads
+// them from there; PERF.md holds its measured times against that bound.
+// Redesigning the wide-state regime is queued (ROADMAP queue 2).
 
 #include <cuda_runtime.h>
 #include <math.h>

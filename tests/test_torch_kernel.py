@@ -9,6 +9,8 @@ GPU host without JAX:
 On a host without CUDA those tests skip; the plan and wrapper tests run.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -16,40 +18,110 @@ import torch
 from lrf_tpu_torch.ops import bcd, bcd_kernel
 
 RNG = np.random.default_rng(23)
-# The kernel's block size, and the shared memory an H100 block may opt into.
-THREADS = 512
+# The shared memory an H100 block may opt into.
 H100_SMEM = 232448
 SHAPES = [(3, 300, 64, 7), (2, 257, 64, 5), (1, 64, 64, 1), (2, 128, 64, 26), (2, 128, 64, 64)]
+# Float YCbCr-like X at a resident cluster (C = 2) and a streamed one (16 CTAs).
+FLOAT_X_SHAPES = [(3, 1000, 64, 6), (2, 20000, 64, 4)]
 
 
 @pytest.mark.parametrize(
     "m,n,r,want",
     [
-        # bench Y and merged chroma: everything in shared memory, full tiles
-        (6144, 64, 6, (512, True, 150816)),
-        (1536, 64, 3, (512, True, 140872)),
-        (49152, 64, 13, (512, True, 167752)),
-        (300, 64, 7, (300, True, 90376)),
-        # no-patch and RGB-patch widths: V and the Grams go to global scratch
-        (512, 768, 51, (70, False, 229600)),
-        (6144, 192, 96, (200, False, 232000)),
+        # bench Y and merged chroma: a cluster per image, X slices resident
+        (6144, 64, 6, ("bcd_cluster", 8, 768, True, 768, 227600)),
+        (1536, 64, 3, ("bcd_cluster", 2, 768, True, 768, 212080)),
+        # CLIC-size Y: the largest cluster, X streamed in 256-row tiles
+        (49152, 64, 13, ("bcd_cluster", 16, 3072, False, 256, 187440)),
+        (300, 64, 7, ("bcd_cluster", 1, 300, True, 300, 99552)),
+        # rank above the cluster kernel's 16: one block per image, state in shared memory
+        (128, 64, 26, ("bcd", 1, 128, False, 128, 65824)),
+        # no-patch and RGB-patch widths: one block per image, state in global scratch
+        (512, 768, 51, ("bcd", 1, 512, False, 70, 229600)),
+        (6144, 192, 96, ("bcd", 1, 6144, False, 200, 232000)),
     ],
 )
 def test_launch_plan_at_codec_shapes(m, n, r, want):
-    tile, smem_mode, smem = bcd_kernel.launch_plan(m, n, r, THREADS, H100_SMEM)
-    assert (tile, smem_mode, smem) == want
-    assert 1 <= tile <= min(m, THREADS) and smem <= H100_SMEM
+    plan = bcd_kernel.launch_plan(m, n, r, H100_SMEM)
+    assert (plan.variant, plan.cluster, plan.rows_per_cta, plan.resident, plan.tile, plan.smem_bytes) == want
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.cluster * plan.rows_per_cta >= m > (plan.cluster - 1) * plan.rows_per_cta
+    assert plan.state_in_smem == (plan.variant == "bcd_cluster" or n == 64)
 
 
 @pytest.mark.parametrize("m", [1, 7, 31, 33])
 def test_launch_plan_short_stacks_keep_state_in_shared_memory(m):
-    tile, smem_mode, smem = bcd_kernel.launch_plan(m, 64, 1, THREADS, H100_SMEM)
-    assert tile == m and smem_mode and smem <= H100_SMEM
+    plan = bcd_kernel.launch_plan(m, 64, 1, H100_SMEM)
+    assert plan.variant == "bcd_cluster" and plan.cluster == 1 and plan.rows_per_cta == m
+    assert plan.resident and plan.state_in_smem and plan.smem_bytes <= H100_SMEM
+    old = bcd_kernel.launch_plan(m, 64, 1, H100_SMEM, variant="bcd")
+    assert old.tile == m and old.state_in_smem and old.smem_bytes <= H100_SMEM
+
+
+@pytest.mark.parametrize("m,r", [(6144, 6), (1536, 3), (49152, 13), (6144, 16), (100000, 16)])
+def test_cluster_plan_covers_m_and_fits(m, r):
+    # The smallest cluster that keeps X resident, else 16 CTAs streaming;
+    # the bytes are the kernel's Layout.
+    plan = bcd_kernel.launch_plan(m, 64, r, H100_SMEM)
+    assert plan.variant == "bcd_cluster" and plan.smem_bytes <= H100_SMEM
+    assert plan.smem_bytes == bcd_kernel.cluster_smem_bytes(plan.rows_per_cta, plan.tile, r)
+    if plan.resident:
+        assert plan.tile == plan.rows_per_cta
+        if plan.cluster > 1:
+            half = -(-m // (plan.cluster // 2))
+            assert bcd_kernel.cluster_smem_bytes(half, half, r) > H100_SMEM
+    else:
+        assert plan.cluster == bcd_kernel.CLUSTER_MAX and plan.tile == bcd_kernel.STREAM_TILE
+
+
+def test_launch_plan_forced_variants():
+    assert bcd_kernel.launch_plan(6144, 64, 6, H100_SMEM, variant="bcd").variant == "bcd"
+    with pytest.raises(ValueError, match="N = 64"):
+        bcd_kernel.launch_plan(512, 768, 51, H100_SMEM, variant="bcd_cluster")
+    with pytest.raises(ValueError, match="unknown"):
+        bcd_kernel.launch_plan(64, 64, 1, H100_SMEM, variant="nope")
 
 
 def test_launch_plan_rejects_rows_wider_than_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
-        bcd_kernel.launch_plan(64, H100_SMEM // 4, 3, THREADS, H100_SMEM)
+        bcd_kernel.launch_plan(64, H100_SMEM // 4, 3, H100_SMEM)
+
+
+def test_library_path_covers_every_file_under_csrc(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(bcd_kernel.CSRC, csrc)
+    monkeypatch.setattr(bcd_kernel, "CSRC", csrc)
+    lib = bcd_kernel._KernelLib()
+    paths = {lib.library_path(name) for name in bcd_kernel.SOURCES}
+    assert len(paths) == len(bcd_kernel.SOURCES)
+    files = sorted(p for p in csrc.iterdir() if p.is_file())
+    assert {f.name for f in files} >= set(bcd_kernel.SOURCES.values())
+    seen = {lib.digest()}
+    for f in files:  # an edit of any source or header
+        f.write_bytes(f.read_bytes() + b"\n// edited\n")
+        seen.add(lib.digest())
+    (csrc / "common.cuh").write_text("// a new header\n")
+    seen.add(lib.digest())
+    monkeypatch.setattr(bcd_kernel, "NVCC_FLAGS", bcd_kernel.NVCC_FLAGS + ("-lineinfo",))
+    seen.add(lib.digest())
+    assert len(seen) == len(files) + 3
+    assert all(lib.library_path(name).name.endswith(f"_{lib.digest()}.so") for name in bcd_kernel.SOURCES)
+
+
+def test_extra_defines_build_a_library_of_their_own():
+    plain, profiled = bcd_kernel._KernelLib(), bcd_kernel._KernelLib(defines=("-DLRF_BCDC_PROFILE",))
+    for name in bcd_kernel.SOURCES:
+        assert plain.library_path(name) != profiled.library_path(name)
+    assert plain.library_path() == bcd_kernel.KERNEL.library_path()
+
+
+def test_phase_tool_refuses_to_run_without_cuda(monkeypatch, tmp_path):
+    from lrf_tpu_torch.tools import bcd_kernel_phases
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "phases.json"
+    assert bcd_kernel_phases.main(["--out", str(out)]) == 1
+    assert not out.exists()
 
 
 def test_wrapper_rejects_bad_arguments():
@@ -68,18 +140,24 @@ def _cuda():
         pytest.skip("needs a CUDA device and nvcc (the BCD kernel has no CPU mode)")
 
 
-@pytest.mark.cuda
-# one-patch images (M = 1), rank above min(M, N) (zero-padded init), no-patch width
-@pytest.mark.parametrize("b,m,n,r", SHAPES + [(2, 1, 64, 1), (1, 5, 64, 8), (1, 512, 768, 51)])
-def test_kernel_matches_plain_on_gpu(b, m, n, r):
+def _stack(kind, b, m, n):
+    if kind == "int":
+        return torch.from_numpy(RNG.integers(0, 256, (b, m, n)).astype(np.float32))
+    # YCbCr-like float planes: a smooth field plus noise, inside [16, 235].
+    base = RNG.uniform(40.0, 200.0, (b, 1, n)) + RNG.normal(0.0, 12.0, (b, m, n))
+    return torch.from_numpy(np.clip(base, 16.0, 235.0).astype(np.float32))
+
+
+def _matches_plain(x, r):
     # Tolerance of tests/test_bcd_pallas.py: mean loss within 2e-3 and more
     # than 85% of entries equal (sums run in another order; round() ties flip).
-    _cuda()
-    x = torch.from_numpy(RNG.integers(0, 256, (b, m, n)).astype(np.float32)).cuda()
+    b, m, n = x.shape
     u0, v0, _ = bcd.svd_init(x, r, bounds=(-16, 15))
-    before = bcd_kernel.KERNEL.launches
+    plan = bcd_kernel.KERNEL.plan(m, n, r)
+    before = dict(bcd_kernel.KERNEL.counts)
     uk, vk = bcd_kernel.bcd(x, u0, v0, num_iters=4)
-    assert bcd_kernel.KERNEL.launches == before + 1
+    assert bcd_kernel.KERNEL.counts[plan.variant] == before[plan.variant] + 1
+    assert bcd_kernel.KERNEL.launches == sum(before.values()) + 1
     ur, vr = bcd_kernel.bcd_reference(x, u0, v0, num_iters=4)
     loss_k = float(bcd.qmf_loss(x, uk, vk).mean())
     loss_r = float(bcd.qmf_loss(x, ur, vr).mean())
@@ -89,6 +167,15 @@ def test_kernel_matches_plain_on_gpu(b, m, n, r):
         assert torch.all(f == torch.round(f)) and f.min() >= -16 and f.max() <= 15
     u1, v1 = bcd_kernel.bcd(x[:1].contiguous(), u0[:1], v0[:1], num_iters=4)
     assert torch.equal(uk[:1], u1) and torch.equal(vk[:1], v1)
+
+
+@pytest.mark.cuda
+# one-patch images (M = 1), rank above min(M, N) (zero-padded init), no-patch width
+@pytest.mark.parametrize("b,m,n,r", SHAPES + [(2, 1, 64, 1), (1, 5, 64, 8), (1, 512, 768, 51)] + FLOAT_X_SHAPES)
+def test_kernel_matches_plain_on_gpu(b, m, n, r):
+    _cuda()
+    x = _stack("float" if (b, m, n, r) in FLOAT_X_SHAPES else "int", b, m, n).cuda()
+    _matches_plain(x, r)
 
 
 @pytest.mark.cuda
