@@ -27,7 +27,17 @@ Phases, each of which raises (exit code != 0) when a check fails:
    pixels, and per-image PSNR must be within 0.2 dB of an encode whose BCD
    is the plain version;
 5. per-image round trips of the other codec variants on the card, each
-   held against the same encode on the CPU at a small size.
+   held against the same encode on the CPU at a small size;
+6. the host tail at the same width: the native fiber coder's build and
+   backends; one encode with each transport (raw factors, the flat pack,
+   the entropy pack), whose streams must be byte-identical, with each
+   mode's encode, host and device times; the native serializer against the
+   plain pure-Python one on the same fetched factors (equal bytes under
+   the "zlib" coder); the synchronizing CUDA calls of one encode; then
+   `sharded_qmf_encode_batches` over 8 batches, which must give the
+   one-shot streams in order with 16 cluster-kernel launches, and
+   `sharded_qmf_decode_batches` over those streams, which must give the
+   one-shot decode's pixels through the packed upload.
 
 It prints one JSON line of per-kernel numbers (times summed over the two
 main-path shapes), then as its last line
@@ -246,7 +256,7 @@ def main_path_stacks(torch, lt, bcd_mod, seed: int):
     from lrf_tpu_torch.ops import color, pad, patch, resample
 
     images = load_images(seed)
-    _, metadata = lt.build_sharded_encoder("cuda", images.shape[-2:], quality=10)
+    _, metadata, _ = lt.build_sharded_encoder("cuda", images.shape[-2:], quality=10)
     x_dev = torch.from_numpy(images).cuda()
     chans = resample.chroma_downsample(color.rgb_to_ycbcr(x_dev), (0.5, 0.5))
     stacks = [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8)) for c in chans]
@@ -322,7 +332,7 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
         enc_s.append(time.perf_counter() - t0)
     check(again == streams, "batched encode is not deterministic")
 
-    fn, metadata = lt.build_sharded_encoder("cuda", (h, w), quality=10)
+    fn, metadata, _ = lt.build_sharded_encoder("cuda", (h, w), quality=10)
     x_dev = torch.from_numpy(images).cuda()
     device_ms = cuda_ms(lambda: fn(x_dev), 3)
     # The front end and the init (Gram, one batched eigh, sign choice) alone.
@@ -367,7 +377,7 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
           f"device part {device_ms:.3f} ms); decode {mpix / dec_best:.3f} Mpix/s ({dec_best * 1e3:.2f} ms)")
     print(f"main path [{label}]: of the {device_ms:.3f} ms device part, front end (color, chroma "
           f"downsample, pad, patchify) {front_ms:.3f} ms, init (Grams + eigh of {b + 2 * b} 64x64 matrices + "
-          f"signs) {init_ms:.3f} ms; host part (fetch + zlib + framing) {enc_best * 1e3 - device_ms:.2f} ms")
+          f"signs) {init_ms:.3f} ms; host part (fetch + native serializer) {enc_best * 1e3 - device_ms:.2f} ms")
     return dict(launches=launches, enc_ms=enc_best * 1e3, device_ms=device_ms)
 
 
@@ -389,6 +399,152 @@ def phase_variants(torch, lt, seed: int):
         check(np.isfinite(p) and p > 10.0, f"{kwargs}: PSNR {p}")
         check(dp < 0.2, f"{kwargs}: card vs CPU on a 64x96 crop differ by {dp} dB")
         print(f"variant {kwargs}: ok, 512x768 PSNR {p:.4f} dB; 64x96 card vs CPU |dPSNR| {dp:.6f} dB")
+
+
+def best_s(fn, reps: int = 3):
+    """(best host-clock seconds of `reps` runs, the last result); each run
+    starts and ends with the device idle."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times), out
+
+
+def sync_sites(torch, fn) -> list[str]:
+    """The synchronizing CUDA calls that `fn()` makes, by call site, from
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno} ({str(w.message).splitlines()[0][:60]})"
+        for w in caught if "called a synchronizing" in str(w.message)
+    )
+    return [f"{n} x {site}" for site, n in sites.items()]
+
+
+def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
+    """Phase 6: the transports, the native serializer against the plain one,
+    and the pipelined encode and decode over 8 batches."""
+    from lrf_tpu_torch.native import fibercodec as native
+    from lrf_tpu_torch.ops import entropy
+    from lrf_tpu_torch.parallel import decode as pdec
+    from lrf_tpu_torch.parallel import encode as penc
+    from lrf_tpu_torch.utils.transfer import HostCopy
+
+    images = load_images(seed)
+    b, _, h, w = images.shape
+    mpix = b * h * w / 1e6
+    x_dev = torch.from_numpy(images).cuda()
+    coder = lt.get_fiber_coder()
+    print(f"host tail [{label}]: fiber coder {coder}, native backends {native.backends()}, "
+          f"{os.cpu_count()} host cores")
+
+    runs = {}
+    for mode in (None, "flat", "entropy"):
+        fn, metadata, spec = lt.build_sharded_encoder("cuda", (h, w), quality=10, batch=b, pack=mode)
+        device_ms = cuda_ms(lambda: fn(x_dev), 3)
+        enc_s, streams = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", pack=mode))
+        out = fn(x_dev)
+        d2h = sum(t.numel() * t.element_size() for t in out)
+        fetch_s, host_out = best_s(lambda: penc._fetch_encoded(HostCopy(out), spec), 1)
+        ser_s, again = best_s(lambda: penc._serialize_batch(host_out, spec, metadata, b))
+        check(again == streams, f"pack={mode}: serializing the fetched buffers gives other streams")
+        runs[mode] = dict(streams=streams, host_out=host_out, spec=spec, metadata=metadata)
+        extra = ""
+        if mode == "entropy":
+            seg_base = host_out[0]
+            n_values = sum(int(np.prod(s)) for s in spec["shapes"])
+            used_words = spec["n_seg_words"] + spec["main_words"] + int(seg_base[-1]) * entropy.ROW_WORDS
+            extra = (f"; {int(seg_base[-1])} of {spec['exc_budget']} continuation rows used, "
+                     f"{32 * used_words / n_values:.4f} bits/value used ({32 * d2h / 4 / n_values:.4f} fetched; "
+                     f"table's own {entropy.expected_bits_per_value():.4f}); ENTROPY_STATS {penc.ENTROPY_STATS}")
+        print(f"host tail [{label}] pack={mode}: encode {enc_s * 1e3:.2f} ms ({mpix / enc_s:.3f} Mpix/s); "
+              f"device part {device_ms:.3f} ms (CUDA events); fetch {fetch_s * 1e3:.3f} ms of {d2h} B; "
+              f"host part (native serializer, best of 3) {ser_s * 1e3:.3f} ms{extra}", flush=True)
+    raw = runs[None]["streams"]
+    for mode in ("flat", "entropy"):
+        check(runs[mode]["streams"] == raw, f"pack={mode} streams differ from the raw-factor streams")
+    factors = runs[None]["host_out"]
+    decoded = penc._decode_entropy(runs["entropy"]["host_out"], runs["entropy"]["spec"])
+    check(all(np.array_equal(a, c) for a, c in zip(factors, decoded)), "entropy transport changed a factor value")
+    print(f"host tail [{label}]: raw, flat and entropy transports give byte-identical streams ({b} of {b})")
+    dev_factors = [torch.from_numpy(f).cuda() for f in factors]
+    flat_ms = cuda_ms(lambda: penc._pack_factors(dev_factors, -16, 5), 10)
+    budget = runs["entropy"]["spec"]["exc_budget"]
+    entropy_ms = cuda_ms(lambda: entropy.pack_segments(dev_factors, max_exc_rows=budget), 10)
+    print(f"host tail [{label}]: transport packs alone on the main path's factors (CUDA events, mean of 10): "
+          f"flat {flat_ms:.3f} ms, entropy {entropy_ms:.3f} ms")
+
+    metadata = runs[None]["metadata"]
+    lt.set_fiber_coder("zlib")
+    try:
+        native_s, native_zlib = best_s(lambda: penc._serialize_batch(factors, None, metadata, b))
+    finally:
+        lt.set_fiber_coder(*coder)
+    plain_s, plain = best_s(lambda: penc._serialize_plain(factors, metadata, b))
+    check(native_zlib == plain, "native serializer under 'zlib' differs from the pure-Python one")
+    print(f"host tail [{label}]: host part on the same fetched factors: native serializer ('zlib') "
+          f"{native_s * 1e3:.3f} ms, pure-Python serializer {plain_s * 1e3:.3f} ms "
+          f"({plain_s / native_s:.2f}x), bytes identical; default coder {coder} streams "
+          f"{'equal' if raw == native_zlib else 'differ from'} the zlib streams")
+    for line in sync_sites(torch, lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda")):
+        print(f"host tail: sync in one raw encode: {line}")
+    # How much of the init's eigh is host work: CPU seconds of this process
+    # against wall seconds for the main path's 3B Grams of 64 x 64.
+    grams = torch.randn(3 * b, 64, 64, generator=torch.Generator().manual_seed(seed)).cuda()
+    grams = grams @ grams.transpose(-1, -2)
+    torch.linalg.eigh(grams)
+    torch.cuda.synchronize()
+    cpu0, wall0 = time.process_time(), time.perf_counter()
+    torch.linalg.eigh(grams)
+    torch.cuda.synchronize()
+    print(f"host tail [{label}]: torch.linalg.eigh of {3 * b} 64x64 Grams: {(time.perf_counter() - wall0) * 1e3:.3f} ms "
+          f"wall, {(time.process_time() - cpu0) * 1e3:.3f} ms of host CPU time")
+
+    batches = [images] + [load_images(seed + k) for k in range(1, 8)]
+    n = len(batches)
+    one_s, one_shot = best_s(lambda: [lt.sharded_qmf_encode_batch(x, quality=10, device="cuda") for x in batches], 1)
+    half_s, _ = best_s(lambda: list(lt.sharded_qmf_encode_batches(batches[: n // 2], quality=10, device="cuda")), 1)
+    for name in bk.KERNEL.counts:
+        bk.KERNEL.counts[name] = 0
+    pipe_s, got = best_s(lambda: list(lt.sharded_qmf_encode_batches(batches, quality=10, device="cuda")), 1)
+    launches = dict(bk.KERNEL.counts)
+    check(launches == {"bcd_cluster": 2 * n, "bcd": 0}, f"pipelined encode launched {launches}")
+    check(got == one_shot, "pipelined encode differs from the one-shot encodes")
+    # steady state: the second half's batches, with the pipeline's fill and drain cancelled out
+    print(f"host tail [{label}]: pipelined encode of {n} batches {n * mpix / pipe_s:.3f} Mpix/s "
+          f"({pipe_s * 1e3:.1f} ms; of {n // 2} batches {half_s * 1e3:.1f} ms), steady state "
+          f"{(n - n // 2) * mpix / (pipe_s - half_s):.3f} Mpix/s; one-shot encodes {n * mpix / one_s:.3f} Mpix/s "
+          f"({one_s * 1e3:.1f} ms); launches {launches}; streams equal, in order")
+
+    pack = pdec._inflate_streams(one_shot[0])[4]
+    check(pack is not None and pack[:2] == (-16, 5), f"the decode upload is not bit-packed: {pack}")
+    inflate_s, _ = best_s(lambda: pdec._inflate_streams(one_shot[0]))
+    one_s, one_dec = best_s(lambda: [lt.sharded_qmf_decode_batch(s, device="cuda") for s in one_shot], 1)
+    half_s, _ = best_s(lambda: list(lt.sharded_qmf_decode_batches(one_shot[: n // 2], device="cuda")), 1)
+    pipe_s, outs = best_s(lambda: list(lt.sharded_qmf_decode_batches(one_shot, device="cuda")), 1)
+    check(len(outs) == n and all(np.array_equal(a, c) for a, c in zip(outs, one_dec)),
+          "pipelined decode differs from the one-shot decodes")
+    print(f"host tail [{label}]: pipelined decode of {n} batches {n * mpix / pipe_s:.3f} Mpix/s "
+          f"({pipe_s * 1e3:.1f} ms; of {n // 2} batches {half_s * 1e3:.1f} ms), steady state "
+          f"{(n - n // 2) * mpix / (pipe_s - half_s):.3f} Mpix/s; one-shot decodes {n * mpix / one_s:.3f} Mpix/s "
+          f"({one_s * 1e3:.1f} ms); host stage (parse, native inflate and {pack[1]}-bit pack) "
+          f"{inflate_s * 1e3:.3f} ms per batch; pixels equal")
 
 
 def main() -> int:
@@ -416,6 +572,13 @@ def main() -> int:
           f"({' '.join(bk.NVCC_FLAGS)})")
     print("\n".join(line for line in bk.KERNEL.build_log.splitlines()
                     if line.startswith("==") or "registers" in line or "spill" in line))
+    from lrf_tpu_torch.native import fibercodec as native
+
+    t0 = time.perf_counter()
+    backends = native.backends()
+    print(f"build: native fiber coder {native.LIB.library_path().name} compiled in {native.LIB.build_seconds} s, "
+          f"loaded in {time.perf_counter() - t0:.2f} s (g++ {' '.join(native.CXX_FLAGS)}); backends {backends}; "
+          f"{os.cpu_count()} host cores", flush=True)
 
     per_shape = phase_kernel(torch, bk, bcd_mod, args.seed, main_path_stacks(torch, lt, bcd_mod, args.seed))
     main_run = phase_main_path(torch, lt, bk, args.seed, label)
@@ -424,6 +587,7 @@ def main() -> int:
           f"({100 * kernel_ms / main_run['device_ms']:.1f}%) and of the {main_run['enc_ms']:.2f} ms encode "
           f"({100 * kernel_ms / main_run['enc_ms']:.1f}%), from the phase-3 times at the same shapes")
     phase_variants(torch, lt, args.seed)
+    phase_host_tail(torch, lt, bk, args.seed, label)
 
     main_keys = MAIN_SHAPES + [k for k in per_shape if isinstance(k, str)]
     entries = []

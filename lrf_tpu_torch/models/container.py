@@ -1,19 +1,29 @@
-"""Bitstream container: length-prefixed framing + per-fiber zlib coding.
+"""Bitstream container: length-prefixed framing + per-fiber DEFLATE coding.
 
-Port of `lrf_tpu/models/container.py:49-293` on its pure-Python zlib path
-(`:147-158`); the bytes are the format of the JAX package and of the
-reference codec:
+Port of `lrf_tpu/models/container.py`; the bytes are the format of the JAX
+package and of the reference codec:
 
 - `combine_bytes` left-folds payloads as ``len(p1) (4-byte big-endian) ||
   p1 || p2``; `separate_bytes` peels them in reverse;
 - metadata is a UTF-8 JSON dict;
-- 2-D tensors are split into columns ("fibers"), each zlib-9 compressed on
+- 2-D tensors are split into columns ("fibers"), each DEFLATE-compressed on
   its own, with inner metadata ``{"num_fibers", "mode", "dtype"}``; N-D
-  tensors are one whole-buffer zlib-9 blob with ``{"shape", "dtype"}``.
+  tensors are one whole-buffer blob with ``{"shape", "dtype"}``.
 
-The native fiber coder (libdeflate) is not ported yet, so the "best" and
-"deflate" backends give zlib-9 bytes, as the JAX package does when its
-native library is absent.
+Fibers go through the port's native coder (`lrf_tpu_torch/native`,
+thread-pooled C++), with one of three backends (`set_fiber_coder`):
+
+- ``"best"`` (default): per fiber the smaller of zlib-9 and libdeflate
+  level 12, ties to zlib; plain zlib-9 where the native coder was built
+  without libdeflate, as the JAX package does without its library;
+- ``"zlib"``: bytes identical to the reference's `zlib.compress(fiber, 9)`;
+- ``"deflate"``: libdeflate at level 6; raises where the native coder was
+  built without libdeflate.
+
+Every blob is a standard zlib stream, so the reference decoder reads them
+all. `encode_matrix_plain` is the plain pure-Python zlib version of
+`encode_matrix(..., coder="zlib")`, which the tests and `chip_smoke.py`
+hold the native coder against.
 """
 
 from __future__ import annotations
@@ -25,7 +35,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from lrf_tpu_torch.native import fibercodec as _native
+
 _DEFAULT_LEVELS = {"zlib": 9, "deflate": 6, "best": 0}
+# "best" ignores its level: it always races zlib-9 against libdeflate-12.
 _FIBER_CODER: dict = {"backend": "best", "level": 0}
 
 
@@ -41,18 +54,26 @@ def get_fiber_coder() -> tuple[str, int]:
     return _FIBER_CODER["backend"], _FIBER_CODER["level"]
 
 
-def _zlib_level(coder) -> int:
-    """zlib level for a coder spec: the zlib backend's own level, else 9."""
+def _resolve_coder(coder) -> tuple[str, int]:
+    """None -> process default; str -> backend at its default level."""
     if coder is None:
-        backend, level = get_fiber_coder()
-    elif isinstance(coder, str):
-        backend, level = coder, _DEFAULT_LEVELS[coder]
-    else:
-        backend, level = coder
-        level = _DEFAULT_LEVELS[backend] if level is None else level
+        return get_fiber_coder()
+    backend, level = (coder, None) if isinstance(coder, str) else coder
     if backend not in _DEFAULT_LEVELS:
         raise ValueError(f"unknown coder backend {backend!r}")
-    return level if backend == "zlib" else 9
+    return backend, _DEFAULT_LEVELS[backend] if level is None else level
+
+
+def _compress_fibers(matrix: np.ndarray, mode: str, level: int, backend: str) -> list[bytes]:
+    """Native fiber compression, with the "best" race: every fiber through
+    zlib-9 and libdeflate-12, the smaller blob wins, ties to zlib."""
+    if backend != "best":
+        return _native.compress_fibers(matrix, mode, level, backend)
+    blobs_z = _native.compress_fibers(matrix, mode, 9, "zlib")
+    if "deflate" not in _native.backends():
+        return blobs_z
+    blobs_d = _native.compress_fibers(matrix, mode, 12, "deflate")
+    return [z if len(z) <= len(d) else d for z, d in zip(blobs_z, blobs_d)]
 
 
 def _combine_two(payload1: bytes, payload2: bytes) -> bytes:
@@ -92,54 +113,91 @@ def bytes_to_dict(b: bytes) -> dict:
     return json.loads(b.decode("utf-8"))
 
 
-def encode_matrix(matrix: np.ndarray, mode: str = "col", coder=None) -> bytes:
-    """Per-fiber zlib coding of a 2-D array."""
+def _check_matrix(matrix: np.ndarray, mode: str) -> None:
     if matrix.ndim != 2:
         raise ValueError("'matrix' must be 2-D.")
     if mode not in ("col", "row"):
         raise ValueError("'mode' must be 'col' or 'row'.")
+
+
+def _frame_matrix(blobs: Sequence[bytes], mode: str, dtype: np.dtype) -> bytes:
+    metadata = {"num_fibers": len(blobs), "mode": mode, "dtype": np.dtype(dtype).name}
+    return combine_bytes([dict_to_bytes(metadata), combine_bytes(blobs)])
+
+
+def encode_matrix(matrix: np.ndarray, mode: str = "col", coder=None) -> bytes:
+    """Per-fiber DEFLATE coding of a 2-D array, through the native coder."""
+    _check_matrix(matrix, mode)
     matrix = np.ascontiguousarray(matrix)
-    level = _zlib_level(coder)
-    if mode == "col":
-        fibers = [matrix[:, i : i + 1] for i in range(matrix.shape[1])]
-    else:
-        fibers = [matrix[i : i + 1, :] for i in range(matrix.shape[0])]
-    encoded = [zlib.compress(np.ascontiguousarray(f).tobytes(), level) for f in fibers]
-    metadata = {"num_fibers": len(fibers), "mode": mode, "dtype": matrix.dtype.name}
-    return combine_bytes([dict_to_bytes(metadata), combine_bytes(encoded)])
+    backend, level = _resolve_coder(coder)
+    return _frame_matrix(_compress_fibers(matrix, mode, level, backend), mode, matrix.dtype)
+
+
+def encode_matrix_plain(matrix: np.ndarray, mode: str = "col", level: int = 9) -> bytes:
+    """Plain version of `encode_matrix(..., coder=("zlib", level))`: one
+    CPython `zlib.compress` per fiber."""
+    _check_matrix(matrix, mode)
+    fibers = matrix.T if mode == "col" else matrix
+    blobs = [zlib.compress(np.ascontiguousarray(f).tobytes(), level) for f in fibers]
+    return _frame_matrix(blobs, mode, matrix.dtype)
+
+
+def _matrix_fibers(encoded_matrix: bytes) -> tuple[dict, tuple[bytes, ...]]:
+    encoded_metadata, encoded_fibers = separate_bytes(encoded_matrix)
+    metadata = bytes_to_dict(encoded_metadata)
+    return metadata, separate_bytes(encoded_fibers, num_payloads=metadata["num_fibers"])
 
 
 def decode_matrix(encoded_matrix: bytes) -> np.ndarray:
     """Inverse of `encode_matrix`."""
-    encoded_metadata, encoded_fibers = separate_bytes(encoded_matrix)
-    metadata = bytes_to_dict(encoded_metadata)
-    dtype = np.dtype(metadata["dtype"])
-    blobs = separate_bytes(encoded_fibers, num_payloads=metadata["num_fibers"])
-    fibers = [np.frombuffer(zlib.decompress(blob), dtype=dtype) for blob in blobs]
-    return np.stack(fibers, axis=1 if metadata["mode"] == "col" else 0)
+    metadata, blobs = _matrix_fibers(encoded_matrix)
+    return _native.decompress_fibers(blobs, np.dtype(metadata["dtype"]), metadata["mode"])
 
 
 def decode_matrix_batch(encoded_matrices: Sequence[bytes]) -> np.ndarray:
-    """Batched inverse of `encode_matrix` over same-shape streams: `(B, M, N)`."""
-    decoded = [decode_matrix(b) for b in encoded_matrices]
-    if any(d.shape != decoded[0].shape or d.dtype != decoded[0].dtype for d in decoded):
-        raise ValueError("decode_matrix_batch requires homogeneous streams")
-    return np.stack(decoded)
+    """Batched inverse of `encode_matrix` over same-shape streams: `(B, M, N)`.
+
+    All B streams' fibers inflate in one native call.
+    """
+    metadata = None
+    blobs: list[bytes] = []
+    for blob in encoded_matrices:
+        md, fibers = _matrix_fibers(blob)
+        if metadata is None:
+            metadata = md
+        elif md != metadata:
+            raise ValueError("decode_matrix_batch requires homogeneous streams")
+        blobs.extend(fibers)
+    if metadata is None:
+        raise ValueError("no streams to decode")
+    fibers = _native.decompress_fibers_raw(blobs, np.dtype(metadata["dtype"]))
+    fibers = fibers.reshape(len(encoded_matrices), metadata["num_fibers"], -1)
+    return fibers.transpose(0, 2, 1) if metadata["mode"] == "col" else fibers
 
 
 def encode_matrix_batch(tensors: np.ndarray, mode: str = "col", coder=None) -> list[bytes]:
-    """Per-image `encode_matrix` over a `(B, M, N)` stack."""
+    """Per-image `encode_matrix` over a `(B, M, N)` stack; all B * N fibers
+    deflate in one native call. Bytes equal the per-image calls."""
     if tensors.ndim != 3:
         raise ValueError("encode_matrix_batch takes a (B, M, N) stack")
-    return [encode_matrix(t, mode, coder) for t in tensors]
+    if mode not in ("col", "row"):
+        raise ValueError("'mode' must be 'col' or 'row'.")
+    b, m, n = tensors.shape
+    per = n if mode == "col" else m
+    backend, level = _resolve_coder(coder)
+    block = np.ascontiguousarray(tensors.transpose(0, 2, 1) if mode == "col" else tensors).reshape(b * per, -1)
+    blobs = _compress_fibers(block, "row", level, backend)
+    return [_frame_matrix(blobs[i * per : (i + 1) * per], mode, tensors.dtype) for i in range(b)]
 
 
 def encode_tensor(tensor: np.ndarray, coder=None) -> bytes:
-    """2-D -> `encode_matrix`; N-D -> whole-buffer zlib."""
+    """2-D -> `encode_matrix`; N-D -> one whole-buffer blob."""
     tensor = np.asarray(tensor)
     if tensor.ndim == 2:
         return encode_matrix(tensor, coder=coder)
-    payload = zlib.compress(np.ascontiguousarray(tensor).tobytes(), _zlib_level(coder))
+    backend, level = _resolve_coder(coder)
+    raw = np.ascontiguousarray(tensor).reshape(1, -1).view(np.uint8)
+    payload = _compress_fibers(raw, "row", level, backend)[0]
     metadata = {"shape": list(tensor.shape), "dtype": tensor.dtype.name}
     return combine_bytes([dict_to_bytes(metadata), payload])
 

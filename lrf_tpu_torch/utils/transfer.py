@@ -4,12 +4,16 @@
   and raises when CUDA is asked for and absent: nothing silently runs on
   the CPU.
 - `to_host` is the port of `lrf_tpu/utils/transfer.py:57`.
+- `HostCopy` is the counterpart of jax's `copy_to_host_async`: device ->
+  pinned-host copies started at once, read after a CUDA event.
 - `state_from_numpy` carries the JAX package's factor state (numpy arrays
   in its `(B, M, R)` / `(B, N, R)` layout) into float32 tensors, so both
   packages can start from one init.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -43,6 +47,41 @@ def to_host(x) -> np.ndarray:
     if isinstance(x, np.ndarray):
         return x
     return x.detach().cpu().numpy()
+
+
+class HostCopy:
+    """Asynchronous device -> host copies of some tensors.
+
+    On CUDA tensors each copy goes into a freshly allocated pinned host
+    buffer on the current stream, and one CUDA event marks their end; CPU
+    tensors are taken as they are. `wait()` blocks on the event and returns
+    numpy views of the host buffers. The buffers belong to this copy alone
+    (one set per batch), so a thread that still reads them can never see a
+    later copy land in them. Create and wait on the thread that owns the
+    device work; the arrays `wait()` returns may go to any thread.
+    """
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._event = None
+        self._host = []
+        device = None
+        for t in tensors:
+            t = t.detach()
+            if t.device.type == "cuda":
+                pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                pinned.copy_(t, non_blocking=True)
+                self._host.append(pinned)
+                device = t.device
+            else:
+                self._host.append(t.contiguous())
+        if device is not None:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+
+    def wait(self) -> list[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
 
 
 def state_from_numpy(u, v, w=None, *, device):

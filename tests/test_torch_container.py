@@ -1,17 +1,26 @@
 """The port's byte container against the JAX package's.
 
-The JAX package is called with `coder="zlib"`: where its native library is
-built, its default "best" coder may emit libdeflate blobs, which the port
-(zlib only) does not.
+Both packages run the same coder on the same matrix and must give the same
+bytes: "zlib" always, "best" and "deflate" where the JAX package's native
+library loads (without it, the JAX package gives zlib-9 bytes for them).
+The port's "zlib" coder must also equal its own plain pure-Python version.
 """
 
 import numpy as np
 import pytest
 
 from lrf_tpu.models import container as jc
+from lrf_tpu.native import fibercodec as jnative
 from lrf_tpu_torch.models import container as tc
+from lrf_tpu_torch.native import fibercodec as tnative
 
 RNG = np.random.default_rng(7)
+
+
+@pytest.fixture
+def jax_native():
+    if not jnative.available():
+        pytest.skip("the JAX package's native fiber coder does not load here")
 
 
 @pytest.fixture
@@ -25,40 +34,59 @@ def zlib_default():
     tc.set_fiber_coder(*saved_t)
 
 
+def _coders():
+    return ("zlib", "best", "deflate") if "deflate" in tnative.backends() else ("zlib", "best")
+
+
 @pytest.mark.parametrize("shape", [(6144, 6), (96, 1), (64, 26), (1, 5)])
 @pytest.mark.parametrize("mode", ["col", "row"])
-def test_matrix_bytes_identical(shape, mode):
+def test_matrix_bytes_identical(jax_native, shape, mode):
     m = RNG.integers(-16, 16, shape).astype(np.int8)
-    got = tc.encode_matrix(m, mode=mode)
-    assert got == jc.encode_matrix(m, mode=mode, coder="zlib")
-    np.testing.assert_array_equal(tc.decode_matrix(got), m)
-    np.testing.assert_array_equal(jc.decode_matrix(got), m)
+    for coder in _coders():
+        got = tc.encode_matrix(m, mode=mode, coder=coder)
+        assert got == jc.encode_matrix(m, mode=mode, coder=coder), coder
+        np.testing.assert_array_equal(tc.decode_matrix(got), m)
+        np.testing.assert_array_equal(jc.decode_matrix(got), m)
+    assert tc.encode_matrix(m, mode=mode, coder="zlib") == tc.encode_matrix_plain(m, mode=mode)
 
 
 @pytest.mark.parametrize("shape", [(1, 61, 7), (3, 40, 5), (2, 3, 4, 5)])
-def test_tensor_bytes_identical(shape):
+def test_tensor_bytes_identical(jax_native, shape):
     t = RNG.integers(-16, 16, shape).astype(np.int8)
-    got = tc.encode_tensor(t)
-    assert got == jc.encode_tensor(t, coder="zlib")
-    np.testing.assert_array_equal(tc.decode_tensor(got), t)
-    np.testing.assert_array_equal(jc.decode_tensor(got), t)
+    for coder in _coders():
+        got = tc.encode_tensor(t, coder=coder)
+        assert got == jc.encode_tensor(t, coder=coder), coder
+        np.testing.assert_array_equal(tc.decode_tensor(got), t)
+        np.testing.assert_array_equal(jc.decode_tensor(got), t)
 
 
-def test_default_coders_give_zlib_bytes(zlib_default):
+def test_default_coders_give_zlib_bytes(jax_native, zlib_default):
+    # With "zlib" as the process default, the default coder gives zlib-9
+    # bytes; the named coders give their own, the JAX package's bytes.
     m = RNG.integers(-16, 16, (300, 7)).astype(np.int8)
     want = jc.encode_matrix(m)
-    for coder in (None, "zlib", "best", "deflate"):
-        assert tc.encode_matrix(m, coder=coder) == want
+    assert tc.encode_matrix(m) == tc.encode_matrix(m, coder="zlib") == want
+    assert want == tc.encode_matrix_plain(m)
+    for coder in _coders():
+        assert tc.encode_matrix(m, coder=coder) == jc.encode_matrix(m, coder=coder)
     tc.set_fiber_coder("best")
-    assert tc.encode_matrix(m) == want
+    assert tc.get_fiber_coder() == ("best", 0)
+    assert tc.encode_matrix(m) == jc.encode_matrix(m, coder="best")
 
 
-def test_batch_coders_match_per_matrix():
+def test_batch_coders_match_per_matrix(jax_native):
     stack = RNG.integers(-16, 16, (4, 200, 6)).astype(np.int8)
-    blobs = tc.encode_tensor_batch(stack)
-    assert blobs == [jc.encode_matrix(s, coder="zlib") for s in stack]
-    np.testing.assert_array_equal(tc.decode_matrix_batch(blobs), stack)
-    np.testing.assert_array_equal(jc.decode_matrix_batch(blobs), stack)
+    for coder in _coders():
+        blobs = tc.encode_tensor_batch(stack, coder=coder)
+        assert blobs == [tc.encode_matrix(s, coder=coder) for s in stack]
+        assert blobs == [jc.encode_matrix(s, coder=coder) for s in stack]
+        np.testing.assert_array_equal(tc.decode_matrix_batch(blobs), stack)
+        np.testing.assert_array_equal(jc.decode_matrix_batch(blobs), stack)
+    rows = tc.encode_matrix_batch(stack, mode="row")
+    assert rows == [jc.encode_matrix(s, mode="row") for s in stack]
+    np.testing.assert_array_equal(tc.decode_matrix_batch(rows), stack)
+    with pytest.raises(ValueError):
+        tc.decode_matrix_batch([tc.encode_matrix(stack[0]), tc.encode_matrix(stack[0, :, :3])])
 
 
 def test_framing_and_metadata():

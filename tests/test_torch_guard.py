@@ -1,6 +1,7 @@
 """Guards of the port's boundaries.
 
-- `lrf_tpu_torch` and `chip_smoke.py` import neither JAX nor `lrf_tpu`.
+- `lrf_tpu_torch` and `chip_smoke.py` import neither JAX nor `lrf_tpu`,
+  and the port's native coder never loads the JAX package's library.
 - Entry points run on the GPU unless asked for the CPU: with no CUDA they
   raise instead of carrying on on the CPU.
 - The kernel wrapper on CPU tensors runs the plain version and launches
@@ -27,6 +28,7 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
         "import sys; sys.modules['jax'] = None\n"
         "import lrf_tpu_torch\n"
         "import lrf_tpu_torch.ops.bcd_kernel, lrf_tpu_torch.parallel.encode, lrf_tpu_torch.parallel.decode\n"
+        "import lrf_tpu_torch.native.fibercodec, lrf_tpu_torch.ops.entropy\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
         "print(bad)\n"
@@ -40,7 +42,7 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
 def _sources():
     for dirpath, _, files in os.walk(os.path.join(ROOT, "lrf_tpu_torch")):
         for f in files:
-            if f.endswith((".py", ".cu")):
+            if f.endswith((".py", ".cu", ".cpp")):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
 
@@ -81,6 +83,34 @@ def test_sources_name_no_jax_and_no_lrf_tpu_import():
     assert not offenders, offenders
 
 
+def test_sources_name_no_jax_native_library():
+    # The port builds and loads its own coder; no source of it names the JAX
+    # package's library or its binding.
+    for path in _sources():
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        assert "libfibercodec.so" not in text and "lrf_tpu.native" not in text, path
+
+
+def test_native_coder_loads_only_the_ports_library():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from lrf_tpu_torch.models import container\n"
+        "from lrf_tpu_torch.native import fibercodec\n"
+        "m = np.arange(600, dtype=np.int8).reshape(100, 6)\n"
+        "assert (container.decode_matrix(container.encode_matrix(m)) == m).all()\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if 'libfibercodec' in l]\n"
+        "assert maps and all('/lrf_tpu_torch/_build/' in p for p in maps), maps\n"
+        "assert str(fibercodec.LIB.library_path()) in maps\n"
+        "assert not [k for k, v in sys.modules.items() if v is not None and k.split('.')[0] in ('jax', 'lrf_tpu')]\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the refusal path needs a host without it")
@@ -91,7 +121,9 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("entry", ["qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "state"])
+@pytest.mark.parametrize(
+    "entry", ["qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "encode_batches", "decode_batches", "state"]
+)
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the refusal path needs a host without it")
@@ -102,6 +134,8 @@ def test_default_device_raises_without_cuda(entry):
         "qmf_decode": lambda: lrf_tpu_torch.qmf_decode(stream),
         "encode_batch": lambda: lrf_tpu_torch.sharded_qmf_encode_batch(img[None], quality=10),
         "decode_batch": lambda: lrf_tpu_torch.sharded_qmf_decode_batch([stream]),
+        "encode_batches": lambda: next(lrf_tpu_torch.sharded_qmf_encode_batches([img[None]], quality=10)),
+        "decode_batches": lambda: next(lrf_tpu_torch.sharded_qmf_decode_batches([[stream]])),
         "state": lambda: lrf_tpu_torch.state_from_numpy(np.zeros((1, 4, 2)), np.zeros((1, 4, 2)), device="cuda"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
