@@ -37,7 +37,24 @@ Phases, each of which raises (exit code != 0) when a check fails:
    `sharded_qmf_encode_batches` over 8 batches, which must give the
    one-shot streams in order with 16 cluster-kernel launches, and
    `sharded_qmf_decode_batches` over those streams, which must give the
-   one-shot decode's pixels through the packed upload.
+   one-shot decode's pixels through the packed upload;
+7. the fast init: the bench batch with `init="fast"` (two cluster-kernel
+   launches, deterministic), every image's PSNR at least its exact-init
+   PSNR - 0.3 dB; both inits' device ms (CUDA events) and host CPU ms, whole
+   encode times, the device kernels each init launches (`torch.profiler`)
+   and the synchronizing calls of a fast encode;
+8. the dpack decode transport: the bench streams with `transport="dpack"`
+   (the batch must take it) and `"flat"`, pixels equal to phase 4's decode;
+   upload bytes, `unpack_chunks_device`'s device ms, one-shot and 8-batch
+   pipelined decode rates of both, in turns;
+9. meshes and processes: a data mesh over every visible card (and over
+   `cuda:0` twice on a one-card machine): streams equal to the one device's
+   (or all but 2, those within 0.2 dB), two cluster-kernel launches per
+   shard; a patch mesh of 2 (the cards, or `cuda:0` twice) on 8 images: no
+   kernel launch, PSNR within 0.2 dB of the unsharded encode; a
+   two-process `distributed_encode` (gloo; this script re-run with
+   `--dist-worker`, both processes on the card) of 16 images: streams in
+   order, equal to one process's encodes of the same shards.
 
 It prints one JSON line of per-kernel numbers (times summed over the two
 main-path shapes), then as its last line
@@ -49,6 +66,7 @@ exits with code 1 and prints no result. It imports neither JAX nor
 from __future__ import annotations
 
 import argparse
+import collections
 import glob
 import json
 import os
@@ -378,7 +396,7 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     print(f"main path [{label}]: of the {device_ms:.3f} ms device part, front end (color, chroma "
           f"downsample, pad, patchify) {front_ms:.3f} ms, init (Grams + eigh of {b + 2 * b} 64x64 matrices + "
           f"signs) {init_ms:.3f} ms; host part (fetch + native serializer) {enc_best * 1e3 - device_ms:.2f} ms")
-    return dict(launches=launches, enc_ms=enc_best * 1e3, device_ms=device_ms)
+    return dict(launches=launches, enc_ms=enc_best * 1e3, device_ms=device_ms, streams=streams, dec=dec)
 
 
 def phase_variants(torch, lt, seed: int):
@@ -545,12 +563,254 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
           f"{(n - n // 2) * mpix / (pipe_s - half_s):.3f} Mpix/s; one-shot decodes {n * mpix / one_s:.3f} Mpix/s "
           f"({one_s * 1e3:.1f} ms); host stage (parse, native inflate and {pack[1]}-bit pack) "
           f"{inflate_s * 1e3:.3f} ms per batch; pixels equal")
+    return one_shot
+
+
+def device_kernels(torch, fn) -> list[str]:
+    """Names of the device kernels `fn()` launched, from `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def host_and_device_ms(torch, fn, reps: int = 3) -> tuple[float, float]:
+    """(mean host CPU ms of this process, mean device ms by CUDA events) of
+    `fn()`, each run starting with the device idle, after one warm-up."""
+    fn()
+    cpu, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        c0 = time.process_time()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        cpu.append(time.process_time() - c0)
+        dev.append(start.elapsed_time(end))
+    return 1e3 * sum(cpu) / reps, sum(dev) / reps
+
+
+def phase_fast_init(torch, lt, bk, seed: int, label: str, exact_streams, exact_dec) -> None:
+    """Phase 7: `init="fast"` against the exact init on the bench batch."""
+    from lrf_tpu_torch.ops import bcd as bcd_mod
+    from lrf_tpu_torch.ops import color, pad, patch, resample
+
+    images = load_images(seed)
+    b, _, h, w = images.shape
+    mpix = b * h * w / 1e6
+    for name in bk.KERNEL.counts:
+        bk.KERNEL.counts[name] = 0
+    fast = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init="fast")
+    launches = dict(bk.KERNEL.counts)
+    check(launches == {"bcd_cluster": 2, "bcd": 0}, f"fast-init encode launched {launches}")
+    check(lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init="fast") == fast,
+          "fast-init encode is not deterministic")
+    p_exact = per_image_psnr(images, exact_dec)
+    p_fast = per_image_psnr(images, lt.sharded_qmf_decode_batch(fast, device="cuda"))
+    delta = p_fast - p_exact
+    check(bool(np.all(delta >= -0.3)), f"fast init loses more than 0.3 dB: worst {delta.min()} dB")
+    print(f"fast init [{label}]: {b} of {b} images within the -0.3 dB bound; PSNR delta against the exact init "
+          f"mean {delta.mean():+.4f} dB, worst {delta.min():+.4f} dB, best {delta.max():+.4f} dB; "
+          f"{sum(a == c for a, c in zip(fast, exact_streams))}/{b} streams equal; launches {launches}", flush=True)
+
+    x_dev = torch.from_numpy(images).cuda()
+    chans = resample.chroma_downsample(color.rgb_to_ycbcr(x_dev), (0.5, 0.5))
+    stacks = [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8)) for c in chans]
+    stacks = [stacks[0], torch.cat(stacks[1:], dim=0)]
+    ranks = lt.build_sharded_encoder("cuda", (h, w), quality=10)[1]["rank"][:2]
+    inits = {
+        "svd": lambda: bcd_mod.svd_init_shared(stacks, ranks, bounds=BOUNDS),
+        "fast": lambda: [bcd_mod.svd_init(x, r, method="randomized", bounds=BOUNDS) for x, r in zip(stacks, ranks)],
+    }
+    for mode, fn in inits.items():
+        cpu_ms, dev_ms = host_and_device_ms(torch, fn)
+        enc_s, _ = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init=mode))
+        names = device_kernels(torch, fn)
+        ours = sum(n.startswith(("void at::", "at::")) for n in names)
+        top = collections.Counter(names).most_common(6)
+        print(f"fast init [{label}] init={mode}: init {dev_ms:.3f} ms on the device (CUDA events), {cpu_ms:.3f} ms of "
+              f"host CPU; whole encode {enc_s * 1e3:.2f} ms ({mpix / enc_s:.3f} Mpix/s); the init launched "
+              f"{len(names)} device kernels ({len(names) - ours} outside PyTorch's own at:: kernels, i.e. cuSOLVER "
+              f"and cuBLAS) for {3 * b} matrices", flush=True)
+        for name, n in top:
+            print(f"fast init [{label}] init={mode}: kernel {n} x {name[:110]}")
+    for line in sync_sites(torch, lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init="fast")):
+        print(f"fast init: sync in one fast encode: {line}")
+
+
+def phase_dpack(torch, lt, seed: int, label: str, streams, dec, batches) -> None:
+    """Phase 8: the dpack decode transport against the flat one."""
+    from lrf_tpu_torch.ops import entropy
+    from lrf_tpu_torch.parallel import decode as pdec
+
+    b = len(streams)
+    _, _, h, w = dec.shape
+    mpix = b * h * w / 1e6
+    for k in pdec.TRANSPORT_COUNTS:
+        pdec.TRANSPORT_COUNTS[k] = 0
+    got = lt.sharded_qmf_decode_batch(streams, device="cuda", transport="dpack")
+    counts = dict(pdec.TRANSPORT_COUNTS)
+    print(f"dpack [{label}]: the bench batch took {counts}")
+    check(counts == {"dpack": 1, "flat": 0, "unpacked": 0}, f"the bench batch did not take dpack: {counts}")
+    check(np.array_equal(got, dec), "dpack decode differs from the one-shot decode")
+    check(np.array_equal(lt.sharded_qmf_decode_batch(streams, device="cuda"), dec), "flat decode differs")
+
+    sizes = {}
+    for transport in ("flat", "dpack"):
+        upload, _, shapes, _, pack = pdec._inflate_streams(streams, True, transport)
+        sizes[transport] = upload.nbytes
+    shapes3 = [(b, m, r) for m, r in shapes]
+    c_total = entropy.segment_layout(shapes3)[2][-1]
+    words = torch.from_numpy(upload.view(np.int32)).cuda()
+    rows_words = -(-c_total // 4)
+    main_end = rows_words + c_total * entropy.MAIN_WORDS
+    rows_u8 = ((words[:rows_words, None] >> torch.arange(0, 32, 8, device="cuda")) & 0xFF).reshape(-1)[:c_total]
+    unpack_ms = cuda_ms(lambda: entropy.unpack_chunks_device(rows_u8, words[rows_words:main_end], words[main_end:],
+                                                             shapes3), 5)
+    n_values = sum(m * r for m, r in shapes) * b
+    print(f"dpack [{label}]: upload {sizes['dpack']} B ({8 * sizes['dpack'] / n_values:.4f} bits/value, {pack[2]} "
+          f"continuation rows) against flat {sizes['flat']} B ({8 * sizes['flat'] / n_values:.4f}); "
+          f"unpack_chunks_device {unpack_ms:.3f} ms on the device for {c_total} chunks (CUDA events, mean of 5)")
+    n = len(batches)
+    for k in pdec.TRANSPORT_COUNTS:
+        pdec.TRANSPORT_COUNTS[k] = 0
+    for transport in ("flat", "dpack", "dpack", "flat"):
+        one_s, _ = best_s(lambda: lt.sharded_qmf_decode_batch(streams, device="cuda", transport=transport))
+        inflate_s, _ = best_s(lambda: pdec._inflate_streams(streams, True, transport))
+        pipe_s, outs = best_s(lambda: list(lt.sharded_qmf_decode_batches(batches, device="cuda", transport=transport)), 1)
+        check(len(outs) == n, "pipelined decode lost a batch")
+        print(f"dpack [{label}] transport={transport}: one-shot decode {mpix / one_s:.3f} Mpix/s ({one_s * 1e3:.2f} ms, "
+              f"host stage {inflate_s * 1e3:.3f} ms); pipelined decode of {n} batches {n * mpix / pipe_s:.3f} Mpix/s "
+              f"({pipe_s * 1e3:.1f} ms)", flush=True)
+    counts = dict(pdec.TRANSPORT_COUNTS)
+    print(f"dpack [{label}]: batches per transport over the timed decodes: {counts}")
+    check(counts["unpacked"] == 0 and counts["dpack"] == counts["flat"], f"a timed batch left its transport: {counts}")
+    check(all(np.array_equal(a, c) for a, c in zip(outs, lt.sharded_qmf_decode_batches(batches, device="cuda",
+                                                                                       transport="dpack"))),
+          "pipelined dpack decode differs from the pipelined flat decode")
+
+
+def _equal_or_close(images, got, want, what: str) -> int:
+    """Streams equal to `want`, or at least B - 2 equal and the rest within
+    0.2 dB of PSNR. Returns how many are equal."""
+    import lrf_tpu_torch as lt
+
+    same = sum(a == c for a, c in zip(got, want))
+    check(len(got) == len(want) and same >= len(want) - 2, f"{what}: only {same}/{len(want)} streams equal")
+    for i, (a, c) in enumerate(zip(got, want)):
+        if a != c:
+            dp = abs(float(lt.psnr(images[i], lt.qmf_decode(a))) - float(lt.psnr(images[i], lt.qmf_decode(c))))
+            check(dp < 0.2, f"{what}: image {i} differs by {dp} dB")
+    return same
+
+
+def dist_worker(rank: int, port: int, out_path: str, seed: int) -> int:
+    """One process of phase 9's two-process run (`--dist-worker`)."""
+    import datetime
+
+    sys.path.insert(0, HERE)
+    import lrf_tpu_torch as lt
+    from lrf_tpu_torch.models.container import combine_bytes
+
+    lt.initialize(init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
+                  timeout=datetime.timedelta(seconds=300))
+    images = load_images(seed, count=16)
+    streams = lt.distributed_encode(images, lambda shard: lt.sharded_qmf_encode_batch(shard, quality=10, device="cuda"))
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            f.write(combine_bytes(streams))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
+    """Phase 9: data and patch meshes, and two processes."""
+    import socket
+    import tempfile
+
+    from lrf_tpu_torch.models.container import separate_bytes
+
+    count = torch.cuda.device_count()
+    print(f"mesh [{label}]: {count} visible CUDA device(s)")
+    images = load_images(seed)
+    meshes = [lt.make_mesh()]
+    if count == 1:
+        meshes.append(lt.make_mesh(data=2, devices=["cuda:0", "cuda:0"]))
+    for mesh in meshes:
+        for name in bk.KERNEL.counts:
+            bk.KERNEL.counts[name] = 0
+        got = lt.sharded_qmf_encode_batch(images, quality=10, device=mesh)
+        launches = dict(bk.KERNEL.counts)
+        rows = mesh.shape["data"]
+        check(launches == {"bcd_cluster": 2 * rows, "bcd": 0}, f"{mesh}: launches {launches}")
+        same = _equal_or_close(images, got, streams, f"data mesh {mesh}")
+        t, _ = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device=mesh))
+        dec = lt.sharded_qmf_decode_batch(got, device=mesh)
+        check(all(np.array_equal(dec[i], lt.qmf_decode(s)) for i, s in enumerate(got)), f"{mesh}: decode differs")
+        print(f"mesh [{label}]: data mesh {mesh}: {same}/{len(got)} streams equal to one device's; cluster-kernel "
+              f"launches {launches['bcd_cluster'] // rows} per shard ({rows} shards); encode {t * 1e3:.2f} ms", flush=True)
+
+    small = images[:8]
+    want = lt.sharded_qmf_encode_batch(small, quality=10, device="cuda")
+    cards = [f"cuda:{i}" for i in range(count)]
+    patch_mesh = lt.make_mesh(data=1, patch=2, devices=cards[:2] if count >= 2 else ["cuda:0", "cuda:0"])
+    launches = bk.KERNEL.launches
+    t, got = best_s(lambda: lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh), 1)
+    check(bk.KERNEL.launches == launches, "the patch-sharded encode launched a BCD kernel")
+    check(got == lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh), "patch-sharded encode not deterministic")
+    dp = per_image_psnr(small, lt.sharded_qmf_decode_batch(got, device=patch_mesh)) - per_image_psnr(
+        small, lt.sharded_qmf_decode_batch(want, device="cuda"))
+    check(bool(np.all(np.abs(dp) < 0.2)), f"patch-sharded PSNR differs by up to {np.abs(dp).max()} dB")
+    print(f"mesh [{label}]: patch mesh {patch_mesh} on {len(small)} x 512x768: plain sweeps across 2 shards (0 kernel "
+          f"launches), {t * 1e3:.1f} ms; PSNR within {np.abs(dp).max():.6f} dB of the unsharded encode "
+          f"(mean {dp.mean():+.6f}); {sum(a == c for a, c in zip(got, want))}/{len(small)} streams equal", flush=True)
+
+    data16 = load_images(seed, count=16)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "streams.bin")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--dist-worker",
+                                   str(rank), str(port), out_path]) for rank in range(2)]
+        try:
+            codes = [p.wait(timeout=400) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(codes == [0, 0], f"two-process encode exited {codes}")
+        with open(out_path, "rb") as f:
+            got = list(separate_bytes(f.read(), 16))
+        dist_s = time.perf_counter() - t0
+    shards = (lt.sharded_qmf_encode_batch(data16[:8], quality=10, device="cuda")
+              + lt.sharded_qmf_encode_batch(data16[8:], quality=10, device="cuda"))
+    check(got == shards, "two-process streams differ from one process's encodes of the same shards")
+    whole = lt.sharded_qmf_encode_batch(data16, quality=10, device="cuda")
+    print(f"mesh [{label}]: two-process distributed_encode (gloo, both on the card) of 16 x 512x768: streams in order, "
+          f"16/16 equal to one process's encodes of the two shards, {sum(a == c for a, c in zip(got, whole))}/16 equal "
+          f"to its encode of all 16; {dist_s:.1f} s with process start-up", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-worker", nargs=3, metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_worker:
+        rank, port, out_path = args.dist_worker
+        return dist_worker(int(rank), int(port), out_path, args.seed)
 
     import torch
 
@@ -587,7 +847,10 @@ def main() -> int:
           f"({100 * kernel_ms / main_run['device_ms']:.1f}%) and of the {main_run['enc_ms']:.2f} ms encode "
           f"({100 * kernel_ms / main_run['enc_ms']:.1f}%), from the phase-3 times at the same shapes")
     phase_variants(torch, lt, args.seed)
-    phase_host_tail(torch, lt, bk, args.seed, label)
+    batches = phase_host_tail(torch, lt, bk, args.seed, label)
+    phase_fast_init(torch, lt, bk, args.seed, label, main_run["streams"], main_run["dec"])
+    phase_dpack(torch, lt, args.seed, label, main_run["streams"], main_run["dec"], batches)
+    phase_mesh(torch, lt, bk, args.seed, label, main_run["streams"])
 
     main_keys = MAIN_SHAPES + [k for k in per_shape if isinstance(k, str)]
     entries = []

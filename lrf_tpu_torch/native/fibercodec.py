@@ -301,7 +301,8 @@ def dpack_encode(
     """Delta+Huffman encode of fiber-major int8 factor buffers into the
     entropy-transport layout (the host mirror of `pack_segments`). Returns
     `(main, exc, chunk_rows, n_rows)`, or None when the rows exceed
-    `max_rows_budget` (the caller then uses the flat pack)."""
+    `max_rows_budget` or a delta falls outside the code's alphabet (the
+    caller then uses the flat pack)."""
     c_total = sum(b * (-(-int(m) * int(r) // chunk)) for m, r in zip(ms, rs))
     main = np.zeros(c_total * main_words, dtype=np.uint32)
     exc = np.zeros(max_rows_budget * row_words, dtype=np.uint32)
@@ -317,7 +318,7 @@ def dpack_encode(
         max_rows_budget, _ptr(main, ctypes.c_uint32), _ptr(exc, ctypes.c_uint32), _ptr(chunk_rows, ctypes.c_uint8),
         _ptr(n_rows, ctypes.c_int64),
     )
-    if rc == 1:
+    if rc in (1, 2):  # over the row budget; a delta outside the alphabet
         return None
     _check(rc, "dpack_encode")
     return main, exc, chunk_rows, int(n_rows[0])

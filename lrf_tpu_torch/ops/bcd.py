@@ -14,6 +14,10 @@ On CUDA tensors with ``factor=(0, 1)`` and no regularisation (the codec's
 only mode), `bcd_from_init` runs the whole sweep loop in the hand-written
 kernel of `lrf_tpu_torch.ops.bcd_kernel`. Every other mode, and every CPU
 tensor, runs the plain sweeps below.
+
+`sharded_svd_init` and `sharded_bcd` are the same init and plain sweeps on
+an X held in row shards over several devices (a mesh's patch axis): the
+sums over M are taken across shards in a fixed order.
 """
 
 from __future__ import annotations
@@ -24,7 +28,15 @@ from typing import Callable, Optional
 import torch
 
 from lrf_tpu_torch.ops.common import relative_error, safe_divide, soft_thresholding
-from lrf_tpu_torch.ops.svd import pad_rank, shared_truncated_svd, svd_balanced_factors
+from lrf_tpu_torch.ops.svd import (
+    gram,
+    left_factor,
+    pad_rank,
+    shared_top_pairs,
+    shared_truncated_svd,
+    svd_balanced_factors,
+    top_pairs_from_gram,
+)
 
 _EPS = 1e-16
 
@@ -74,19 +86,21 @@ def svd_init_shared(stacks, ranks, num_levels=None, bounds=(None, None), method=
     return out
 
 
+def clip_penalty(z: torch.Tensor, bounds) -> torch.Tensor:
+    """Squared overshoot of `z` past the integer bounds, summed over dim -2,
+    per rank component: `(..., 1, R)`."""
+    lo_i, hi_i = math.ceil(bounds[0]), math.floor(bounds[1])
+    over = torch.clamp(z - hi_i, min=0.0)
+    under = torch.clamp(lo_i - z, min=0.0)
+    return torch.sum(over * over + under * under, dim=-2, keepdim=True)
+
+
 def _finish_init(x, u, v, num_levels, bounds):
     """Clip-minimising sign choice, optional num_levels rescale, affine `w`."""
     lo, hi = bounds
     if lo is not None and hi is not None:
-        lo_i, hi_i = math.ceil(lo), math.floor(hi)
-
-        def clip_penalty(z):
-            over = torch.clamp(z - hi_i, min=0.0)
-            under = torch.clamp(lo_i - z, min=0.0)
-            return torch.sum(over * over + under * under, dim=-2, keepdim=True)
-
-        pen_pos = clip_penalty(u) + clip_penalty(v)
-        pen_neg = clip_penalty(-u) + clip_penalty(-v)
+        pen_pos = clip_penalty(u, bounds) + clip_penalty(v, bounds)
+        pen_neg = clip_penalty(-u, bounds) + clip_penalty(-v, bounds)
         sign = torch.where(pen_neg < pen_pos, -1.0, 1.0).to(u.dtype)
         u = u * sign
         v = v * sign
@@ -218,6 +232,73 @@ def bcd_from_init(
     for _ in range(num_iters):
         u, v, w = bcd_sweep(x, u, v, w, factor=factor, project=project, l2=l2, l1_ratio=l1_ratio)
     return u, v, w
+
+
+def sum_shards(parts, device: torch.device) -> torch.Tensor:
+    """Sum of per-shard partials, added in shard order on `device`: the
+    fixed-order counterpart of a psum, so the result never depends on
+    which shard finished first."""
+    total = parts[0].to(device)
+    for part in parts[1:]:
+        total = total + part.to(device)
+    return total
+
+
+def sharded_svd_init(stacks, ranks, bounds, method: str = "gram"):
+    """The codec's init (`svd_init_shared`, or `svd_init(method=
+    "randomized")` per stack) for stacks held in row shards.
+
+    `stacks[i]` lists the `(B, M_p, N)` row shards of stack i, one per
+    device, in row order. Each shard's column Gram and clip penalties are
+    summed on the first shard's device, v is computed there, and u stays
+    sharded (`u = X v / s` is row-local). `"gram"` takes one batched eigh
+    over every stack's Gram; `"randomized"` takes the range-finder where the
+    stack is tall and the exact Gram elsewhere. Returns per stack
+    `(u_shards, v)`.
+    """
+    home = stacks[0][0].device
+    grams = [sum_shards([gram(x) for x in shards], home) for shards in stacks]
+    shapes = [(sum(x.shape[-2] for x in shards), shards[0].shape[-1]) for shards in stacks]
+    r_effs = [min(r, m, n) for r, (m, n) in zip(ranks, shapes)]
+    if method == "gram":
+        pairs = shared_top_pairs(grams, r_effs)
+    else:
+        pairs = [top_pairs_from_gram(g, r, method if n <= m else "gram") for g, r, (m, n) in zip(grams, r_effs, shapes)]
+    out = []
+    for shards, rank, (s, v) in zip(stacks, ranks, pairs):
+        rs = torch.sqrt(s)[..., None, :]
+        us = [left_factor(x, s.to(x.device), v.to(x.device)) * rs.to(x.device) for x in shards]
+        us = [torch.nn.functional.pad(u, (0, rank - u.shape[-1])) for u in us]
+        v = torch.nn.functional.pad(v * rs, (0, rank - v.shape[-1]))
+        if bounds[0] is not None and bounds[1] is not None:
+            pen_pos = sum_shards([clip_penalty(u, bounds) for u in us], home) + clip_penalty(v, bounds)
+            pen_neg = sum_shards([clip_penalty(-u, bounds) for u in us], home) + clip_penalty(-v, bounds)
+            sign = torch.where(pen_neg < pen_pos, -1.0, 1.0).to(v.dtype)
+            us = [u * sign.to(u.device) for u in us]
+            v = v * sign
+        out.append((us, v))
+    return out
+
+
+def sharded_bcd(shards, us, v, num_iters: int = 10, bounds=(-16, 15)):
+    """`bcd_reference` on X held in row shards (`shards[p]`: `(B, M_p, N)`,
+    `us[p]`: `(B, M_p, R)`, each on its own device; `v` on the first).
+
+    The U update is row-local, from X_p V and VᵀV on each shard's device.
+    The V update needs XᵀU and UᵀU over all rows: their shard partials are
+    summed in shard order on v's device (`sum_shards`), and the new v is
+    copied back to every shard for the next sweep.
+    """
+    project = make_project(bounds)
+    home = v.device
+    for _ in range(num_iters):
+        vs = [v.to(x.device) for x in shards]
+        us = [update_columns(torch.matmul(x, vd), torch.matmul(vd.transpose(-1, -2), vd), u, 0.0, 0.0, project)
+              for x, u, vd in zip(shards, us, vs)]
+        a = sum_shards([torch.matmul(x.transpose(-1, -2), u) for x, u in zip(shards, us)], home)
+        b = sum_shards([torch.matmul(u.transpose(-1, -2), u) for u in us], home)
+        v = update_columns(a, b, v, 0.0, 0.0, project)
+    return us, v
 
 
 def qmf_reconstruct(u: torch.Tensor, v: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -20,8 +20,12 @@ The packed words are identical to the JAX package's for the same factors:
 `pack_segments` runs as PyTorch ops on the factors' device. `torch.uint32`
 has almost no integer ops, so the bit arithmetic runs in int64 and the
 words come back as int32 tensors holding the uint32 bit patterns
-(`.numpy().view(np.uint32)` on the host). The decode-side device unpack
-(`unpack_chunks_device` in the JAX package) is not ported yet.
+(`.numpy().view(np.uint32)` on the host).
+
+The decode direction (`lrf_tpu/ops/entropy.py:350-458`): the host encodes
+the upload (`native/fibercodec.cpp::lrf_dpack_encode`, the host mirror of
+`pack_segments`) and `unpack_chunks_device` undoes it on the device, every
+chunk at once, CHUNK sequential steps of elementwise work.
 """
 
 from __future__ import annotations
@@ -193,14 +197,18 @@ def _encode_symbols(zz: torch.Tensor):
         ln += (zz >= b).to(torch.int64) * d
     for b, d in _OFF_STEPS:
         off += (zz >= b).to(torch.int64) * d
-    x = zz + off  # the MSB-first code
-    # bit-reverse 32, then keep the low `ln` bits (LSB-first codes)
+    # the MSB-first code zz + off, bit-reversed; its low `ln` bits are the
+    # LSB-first code
+    return ln, _bit_reverse32(zz + off) >> (32 - ln)
+
+
+def _bit_reverse32(x: torch.Tensor) -> torch.Tensor:
+    """Bit reversal of int64 tensors holding 32-bit patterns."""
     x = ((x & 0x55555555) << 1) | ((x >> 1) & 0x55555555)
     x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
     x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
     x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
-    x = ((x << 16) | (x >> 16)) & _U32
-    return ln, x >> (32 - ln)
+    return ((x << 16) | (x >> 16)) & _U32
 
 
 def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -285,6 +293,95 @@ def pack_segments(factors, max_exc_rows=None):
     rank0 = torch.cat([torch.zeros(1, dtype=torch.int64, device=device), rank])
     seg_row_base = rank0[torch.tensor(bounds, dtype=torch.int64, device=device)].to(torch.int32)
     return seg_row_base, _as_int32_bits(main), _as_int32_bits(exc)
+
+
+def _inverse_steps():
+    """Staircase-inverse decode table: [(L, start_code_msb, first_sym,
+    count)] per distinct code length. With canonical monotone codes an
+    L-bit MSB-read prefix `c` is a complete code iff `start_L <= c <
+    start_L + count_L`, and prefix-freeness makes exactly one length match
+    even when the lookahead bits are garbage. The MSB codes come from the
+    staircase offsets, `code_msb(zz) = zz + off(zz)`, the encoder's own
+    convention (`_monotone_table`)."""
+    offs = np.zeros(len(LENS), dtype=np.int64)
+    for b, d in _OFF_STEPS:
+        offs[b:] += d
+    steps = []
+    s = 0
+    while s < len(LENS):
+        length = int(LENS[s])
+        e = s
+        while e < len(LENS) and int(LENS[e]) == length:
+            e += 1
+        steps.append((length, int(s + offs[s]), s, e - s))
+        s = e
+    return steps
+
+
+_INV_STEPS = _inverse_steps()
+
+
+def unpack_chunks_device(rows_u8: torch.Tensor, main: torch.Tensor, exc: torch.Tensor, shapes):
+    """Decode the dpack upload on its device: the factor values, one int32
+    `(B, M, R)` tensor per shape (delta undone).
+
+    Inputs: per-chunk continuation-row counts `(C,)` (any integer dtype),
+    the main stream `(C * MAIN_WORDS,)` and the continuation rows
+    `(rows * ROW_WORDS,)`, the last two holding uint32 bit patterns in any
+    integer dtype (int32 from an upload). Every chunk decodes on its own,
+    given its row count, so the batch is CHUNK sequential steps over all
+    chunks at once: each step reads a 32-bit window at the chunk's bit
+    position, bit-reverses it and matches every code length's MSB prefix
+    against `_INV_STEPS`. Values equal `lrf_tpu.ops.entropy.
+    unpack_chunks_device`'s; the JAX package selects the window's words by a
+    masked sum over all words (lane gathers lower poorly on a TPU), this
+    port by `torch.gather`.
+    """
+    device = main.device
+    _, _, bounds = segment_layout(shapes)
+    c_total = bounds[-1]
+    w_total = MAIN_WORDS + ROW_WORDS * MAX_ROWS
+    rows = rows_u8.to(torch.int64)
+    base = torch.cumsum(rows, dim=0) - rows
+    # per-chunk word window: the fixed main slot, then this chunk's rows and
+    # the following chunks' (lookahead bits there never complete a code
+    # before this chunk's stream ends; the code is prefix-free), then two
+    # zero words where a read runs past the window
+    tail_idx = base[:, None] * ROW_WORDS + torch.arange(ROW_WORDS * MAX_ROWS, dtype=torch.int64, device=device)
+    tail = exc.to(torch.int64)[tail_idx.clamp(0, exc.numel() - 1)] & _U32
+    buf = torch.cat(
+        [main.to(torch.int64).reshape(c_total, MAIN_WORDS) & _U32, tail,
+         torch.zeros((c_total, 2), dtype=torch.int64, device=device)],
+        dim=1,
+    )
+    lengths = torch.tensor([s[0] for s in _INV_STEPS], dtype=torch.int64, device=device)
+    starts = torch.tensor([s[1] for s in _INV_STEPS], dtype=torch.int64, device=device)
+    ends = starts + torch.tensor([s[3] for s in _INV_STEPS], dtype=torch.int64, device=device)
+    firsts = torch.tensor([s[2] for s in _INV_STEPS], dtype=torch.int64, device=device)
+    bitpos = torch.zeros((c_total, 1), dtype=torch.int64, device=device)
+    deltas = []
+    for _ in range(CHUNK):
+        w = (bitpos >> 5).clamp(max=w_total)
+        off = bitpos & 31
+        w0 = torch.gather(buf, 1, w)
+        w1 = torch.gather(buf, 1, w + 1)
+        window = ((w0 >> off) | (w1 << (32 - off))) & _U32  # off == 0: w1 shifts out past bit 31
+        c = _bit_reverse32(window) >> (32 - lengths)  # (C, steps): each length's MSB prefix
+        hit = (c >= starts) & (c < ends)
+        sym = torch.sum(torch.where(hit, c - starts + firsts, 0), dim=1, keepdim=True)
+        bitpos = bitpos + torch.sum(torch.where(hit, lengths, 0), dim=1, keepdim=True)
+        deltas.append(torch.where(sym % 2 == 1, -((sym + 1) // 2), sym // 2))
+    deltas = torch.cat(deltas, dim=1)  # (C, CHUNK)
+
+    out = []
+    offset = 0
+    for b, m, r in shapes:
+        per = m * r
+        cps = -(-per // CHUNK)
+        block = deltas[offset : offset + b * cps].reshape(b, cps * CHUNK)
+        offset += b * cps
+        out.append(torch.cumsum(block[:, :per].reshape(b, m, r), dim=1).to(torch.int32))
+    return out
 
 
 def decode_segments_py(main: np.ndarray, exc: np.ndarray, seg_row_base: np.ndarray, values_per_segment, seg_ranks):

@@ -1,25 +1,36 @@
-"""Batched QMF encode of same-size images on one device.
+"""Batched QMF encode of same-size images on one device or a device mesh.
 
-Port of `lrf_tpu/parallel/encode.py` with a `device=` in place of the JAX
-mesh. A `(B, 3, H, W)` batch runs as one batched pipeline: color
-transform, chroma downsample, pad, patchify, then the factorization of
-each channel's `(B, M, N)` patch stack:
+Port of `lrf_tpu/parallel/encode.py`. Every entry point takes `device=`:
+one device, or a `Mesh` (`parallel/mesh.py`) in place of the JAX mesh. A
+`(B, 3, H, W)` batch runs as one batched pipeline: color transform, chroma
+downsample, pad, patchify, then the factorization of each channel's
+`(B, M, N)` patch stack:
 
 - Cb and Cr share shape and rank at every canonical config, so they are
   merged into ONE `(2B, M, N)` BCD batch;
-- one batched eigh over all channels' `(N, N)` Grams initializes every
-  stack (`svd_init_shared`), when every stack is tall (M >= N);
+- `init="svd"` (default): one batched eigh over all channels' `(N, N)`
+  Grams initializes every stack (`svd_init_shared`), when every stack is
+  tall (M >= N); `init="fast"`: the randomized range-finder
+  (`ops/svd.py`), one per stack, three K x K eighs in place of the N x N
+  one, at a small rate-distortion cost (the opt-in throughput init);
 - the BCD loop goes through `lrf_tpu_torch.ops.bcd_kernel.bcd`: the CUDA
   kernel on a GPU, one launch for Y and one for the merged chroma.
 
-The int8 factors leave the device raw (`pack=None`, the default), 5-bit
-packed (`"flat"`), or delta+Huffman packed (`"entropy"`,
-`ops/entropy.py`), as one buffer copied to pinned host memory. The host
-tail (`_serialize_batch`) turns them into finished streams in one native
-call (`native/fibercodec.cpp`: entropy decode, per-fiber DEFLATE and
-framing). All modes give the same bytes. `sharded_qmf_encode_batches`
-pipelines many batches: device work and copies stay on the calling
-thread while two workers serialize earlier batches.
+On a mesh the batch is split contiguously over the data rows and each
+row's images run the pipeline above on the row's device, the kernel once
+per stack and row. With a patch axis > 1 each stack's M rows are split over
+the row's devices and factorized by the plain sweeps with their sums over
+M taken across the shards (`ops/bcd.py::sharded_bcd`); the fused kernel
+cannot reduce across shards inside its loop.
+
+The int8 factors, gathered on the mesh's first device, leave it raw
+(`pack=None`, the default), 5-bit packed (`"flat"`), or delta+Huffman
+packed (`"entropy"`, `ops/entropy.py`), as one buffer copied to pinned host
+memory. The host tail (`_serialize_batch`) turns them into finished streams
+in one native call (`native/fibercodec.cpp`: entropy decode, per-fiber
+DEFLATE and framing). All modes give the same bytes.
+`sharded_qmf_encode_batches` pipelines many batches: device work and copies
+stay on the calling thread while two workers serialize earlier batches.
 """
 
 from __future__ import annotations
@@ -43,14 +54,15 @@ from lrf_tpu_torch.models.container import (
 from lrf_tpu_torch.models.qmf import _channel_ranks, _padded_size
 from lrf_tpu_torch.native import fibercodec as _native
 from lrf_tpu_torch.ops import entropy as _entropy
-from lrf_tpu_torch.ops.bcd import svd_init, svd_init_shared
+from lrf_tpu_torch.ops.bcd import sharded_bcd, sharded_svd_init, svd_init, svd_init_shared
 from lrf_tpu_torch.ops.bcd_kernel import bcd, bcd_reference
 from lrf_tpu_torch.ops.color import rgb_to_ycbcr
 from lrf_tpu_torch.ops.pad import pad_image
 from lrf_tpu_torch.ops.patch import patchify
 from lrf_tpu_torch.ops.quantize import torch_dtype
 from lrf_tpu_torch.ops.resample import chroma_downsample, scaled_size
-from lrf_tpu_torch.utils.transfer import HostCopy, resolve_device
+from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
+from lrf_tpu_torch.utils.transfer import HostCopy
 
 __all__ = [
     "EntropyOverflowError",
@@ -59,9 +71,12 @@ __all__ = [
     "sharded_qmf_encode_batches",
 ]
 
-# "auto": `bcd` (the CUDA kernel on a GPU, the plain sweeps on the CPU);
+# "auto": `bcd` (the CUDA kernel on a GPU, the plain sweeps on the CPU),
+# except under patch sharding, where the plain sweeps run across shards;
+# "kernel": `bcd` always (refused under patch sharding);
 # "torch": the plain PyTorch sweeps on any device (`bcd_reference`).
-_BACKENDS = ("auto", "torch")
+_BACKENDS = ("auto", "kernel", "torch")
+_INITS = ("svd", "fast")
 
 _logger = logging.getLogger("lrf_tpu_torch.parallel")
 
@@ -172,32 +187,52 @@ def _unpack_factors(packed: np.ndarray, shapes, dtype, lo: int, bits: int):
     return out
 
 
-def _encoder(ranks, scale_factor, patch_size, bounds, num_iters, dtype, backend, pack, exc_rows):
+def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, backend, pack, exc_rows, init):
     """The batched encode function for one config: `(B, 3, H, W)` -> the 6
-    factors, or a 1-tuple holding the packed transport buffer."""
-    run_bcd = bcd if backend == "auto" else bcd_reference
+    factors on the mesh's first device, or a 1-tuple holding the packed
+    transport buffer."""
+    run_bcd = bcd_reference if backend == "torch" else bcd
+    method = "randomized" if init == "fast" else "gram"
 
-    def factorize(xm, rank, init):
-        if init is None:
-            init = svd_init(xm, rank, bounds=bounds)
-        return run_bcd(xm, init[0], init[1], num_iters=num_iters, bounds=bounds)
+    def factorize(stacks, stack_ranks, merged):
+        """One device: the init, then one BCD run per stack."""
+        if init == "svd" and merged and all(x.shape[-2] >= x.shape[-1] for x in stacks):
+            inits = svd_init_shared(stacks, stack_ranks, bounds=bounds)
+        else:
+            inits = [svd_init(x, r, method=method, bounds=bounds) for x, r in zip(stacks, stack_ranks)]
+        return [run_bcd(x, i[0], i[1], num_iters=num_iters, bounds=bounds) for x, i in zip(stacks, inits)]
 
-    def encode(images: torch.Tensor):
+    def factorize_sharded(stacks, stack_ranks, devices):
+        """A data row's patch devices: each stack's M rows split over them,
+        the init and the plain sweeps summed across the shards."""
+        shards = [[p.to(d) for p, d in zip(torch.tensor_split(x, len(devices), dim=1), devices)] for x in stacks]
+        out = []
+        for xs, (us, v) in zip(shards, sharded_svd_init(shards, stack_ranks, bounds, method)):
+            us, v = sharded_bcd(xs, us, v, num_iters=num_iters, bounds=bounds)
+            out.append((torch.cat([u.to(devices[0]) for u in us], dim=1), v))
+        return out
+
+    def encode_row(images: torch.Tensor, devices):
         channels = chroma_downsample(rgb_to_ycbcr(images), scale_factor)
         stacks = [patchify(pad_image(c, patch_size), patch_size) for c in channels]
-        if stacks[1].shape == stacks[2].shape and ranks[1] == ranks[2]:
-            merged = torch.cat([stacks[1], stacks[2]], dim=0)
-            if all(s.shape[-2] >= s.shape[-1] for s in (stacks[0], merged)):
-                init_y, init_c = svd_init_shared([stacks[0], merged], [ranks[0], ranks[1]], bounds=bounds)
-            else:
-                init_y = init_c = None
-            u_y, v_y = factorize(stacks[0], ranks[0], init_y)
-            u_c, v_c = factorize(merged, ranks[1], init_c)
-            b = stacks[1].shape[0]
-            per_channel = [(u_y, v_y), (u_c[:b], v_c[:b]), (u_c[b:], v_c[b:])]
+        b = stacks[0].shape[0]
+        merged = stacks[1].shape == stacks[2].shape and ranks[1] == ranks[2]
+        if merged:
+            stacks, stack_ranks = [stacks[0], torch.cat(stacks[1:], dim=0)], ranks[:2]
         else:
-            per_channel = [factorize(xm, r, None) for xm, r in zip(stacks, ranks)]
-        factors = [f.to(dtype) for uv in per_channel for f in uv]
+            stack_ranks = ranks
+        if len(devices) > 1:
+            per_stack = factorize_sharded(stacks, stack_ranks, devices)
+        else:
+            per_stack = factorize(stacks, stack_ranks, merged)
+        if merged:
+            (u_y, v_y), (u_c, v_c) = per_stack
+            per_stack = [(u_y, v_y), (u_c[:b], v_c[:b]), (u_c[b:], v_c[b:])]
+        return [f.to(dtype) for uv in per_stack for f in uv]
+
+    def encode(images: torch.Tensor):
+        rows = [encode_row(x, devs) for x, devs in zip(mesh.split_batch(images), mesh.devices)]
+        factors = rows[0] if len(rows) == 1 else [torch.cat([r[k].to(mesh.first) for r in rows]) for k in range(6)]
         if pack == "entropy":
             seg_base, main, exc = _entropy.pack_segments(factors, max_exc_rows=exc_rows)
             return (torch.cat([seg_base, main, exc]),)
@@ -221,28 +256,42 @@ def build_sharded_encoder(
     backend: str = "auto",
     pack=None,
     batch: Optional[int] = None,
+    init: str = "svd",
 ):
-    """A batched YCbCr-patch encoder for one config on `device`.
+    """A batched YCbCr-patch encoder for one config on `device` (one device
+    or a `Mesh`).
 
     Returns `(encode_fn, metadata, pack_spec)`: `encode_fn(images)` maps a
-    `(B, 3, H, W)` tensor on `device` to the 6 per-channel factor tensors
-    `(B, ., R)`, or, when a pack mode is active, to a 1-tuple holding the
+    `(B, 3, H, W)` tensor (on the device; on a mesh with several data rows,
+    anywhere) to the 6 per-channel factor tensors `(B, ., R)` on the mesh's
+    first device, or, when a pack mode is active, to a 1-tuple holding the
     packed int32 transport buffer; `metadata` is the stream metadata every
     image shares; `pack_spec` (None for raw factors) is what the host needs
-    to reverse the pack.
+    to reverse the pack. On a mesh B must divide evenly over the data rows.
 
     `pack`: None/False/"" keeps raw factors; "flat" (or True) packs them
     `30 // bits` values per word; "entropy" packs them delta+Huffman
     (`ops/entropy.py`), which needs `batch`, `num_iters >= 1`, int8 and the
     canonical (-16, 15) bounds. Packing needs `batch` (factor shapes carry
     it); without it the factors stay raw. All modes give the same streams.
-    `backend`: "auto" (the BCD kernel on a GPU) or "torch" (plain sweeps).
+    `backend`: "auto" (the BCD kernel on a GPU; the plain sweeps across
+    shards when the mesh's patch axis is > 1), "kernel" (the BCD kernel
+    always; refused under patch sharding) or "torch" (plain sweeps).
+    `init`: "svd" (default; the exact shared-eigh init) or "fast" (the
+    randomized range-finder per stack; other, near-equal bytes).
     """
     if rank is None and quality is None:
         raise ValueError("Either 'rank' or 'quality' must be specified.")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {_BACKENDS}")
-    device = resolve_device(device)
+    if init not in _INITS:
+        raise ValueError(f"unknown init {init!r}; one of {_INITS}")
+    mesh = as_mesh(device)
+    if backend == "kernel" and mesh.shape["patch"] > 1:
+        raise NotImplementedError(
+            "backend='kernel' runs on data-parallel meshes; the fused BCD loop cannot sum over M across patch "
+            "shards, so patch-sharded factorization takes the plain sweeps (backend='auto' picks them)"
+        )
     size = tuple(image_size)
     patch_size = tuple(patch_size)
     chroma_size = scaled_size(size, scale_factor)
@@ -292,16 +341,18 @@ def build_sharded_encoder(
                 exc_budget=exc_budget,
             )
     fn = _encoder(
-        ranks, tuple(scale_factor), patch_size, tuple(bounds), num_iters, torch_dtype(dtype), backend, pack,
-        exc_budget,
+        mesh, ranks, tuple(scale_factor), patch_size, tuple(bounds), num_iters, torch_dtype(dtype), backend, pack,
+        exc_budget, init,
     )
     return fn, metadata, pack_spec
 
 
-def _to_device(images, device: torch.device) -> torch.Tensor:
-    if isinstance(images, torch.Tensor):
-        return images.to(device)
-    return torch.from_numpy(np.ascontiguousarray(images)).to(device)
+def _to_device(images, mesh: Mesh) -> torch.Tensor:
+    """The batch as a tensor: on the device of a one-row mesh, else where it
+    is (`Mesh.split_batch` moves each row's part to its row)."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    return images.to(mesh.first) if len(mesh.devices) == 1 else images
 
 
 def _fetch_encoded(copy: HostCopy, pack_spec):
@@ -403,17 +454,19 @@ def sharded_qmf_encode_batch(
     order than the plain sweeps, so a small share of factor entries can
     differ at round() ties; every stream decodes with either package. A
     batch that overflows the entropy pack's row budget is re-encoded with
-    the flat pack (same bytes).
+    the flat pack (same bytes). `device` may be a `Mesh`: on the CPU a data
+    mesh gives the one device's bytes, and a patch-sharded one near-equal
+    streams (the sums over M are split).
     """
-    device = resolve_device(device)
-    images = _to_device(images, device)
+    mesh = as_mesh(device)
+    images = _to_device(images, mesh)
     b = int(images.shape[0])
     size = (int(images.shape[-2]), int(images.shape[-1]))
-    fn, metadata, pack_spec = build_sharded_encoder(device, size, quality=quality, rank=rank, batch=b, **config)
+    fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
     try:
         host_out = _fetch_encoded(HostCopy(fn(images)), pack_spec)
     except EntropyOverflowError:
-        return sharded_qmf_encode_batch(images, quality=quality, rank=rank, device=device, **{**config, "pack": "flat"})
+        return sharded_qmf_encode_batch(images, quality=quality, rank=rank, device=mesh, **{**config, "pack": "flat"})
     return _serialize_batch(host_out, pack_spec, metadata, b)
 
 
@@ -438,7 +491,7 @@ def sharded_qmf_encode_batches(
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
-    device = resolve_device(device)
+    mesh = as_mesh(device)
     with ThreadPoolExecutor(max_workers=2) as pool:
         in_flight = deque()  # (copy, pack_spec, metadata, b, images)
         pending = deque()  # futures of list[bytes], in batch order
@@ -450,16 +503,16 @@ def sharded_qmf_encode_batches(
             except EntropyOverflowError:
                 size = (int(images.shape[-2]), int(images.shape[-1]))
                 fn, metadata, pack_spec = build_sharded_encoder(
-                    device, size, quality=quality, rank=rank, batch=b, **{**config, "pack": "flat"}
+                    mesh, size, quality=quality, rank=rank, batch=b, **{**config, "pack": "flat"}
                 )
                 host_out = _fetch_encoded(HostCopy(fn(images)), pack_spec)
             pending.append(pool.submit(_serialize_batch, host_out, pack_spec, metadata, b))
 
         for images in batches:
-            images = _to_device(images, device)
+            images = _to_device(images, mesh)
             b = int(images.shape[0])
             size = (int(images.shape[-2]), int(images.shape[-1]))
-            fn, metadata, pack_spec = build_sharded_encoder(device, size, quality=quality, rank=rank, batch=b, **config)
+            fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
             in_flight.append((HostCopy(fn(images)), pack_spec, metadata, b, images))
             if len(in_flight) > depth:
                 drain_one()

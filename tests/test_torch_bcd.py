@@ -116,9 +116,10 @@ def test_shared_init_equals_per_stack_init():
 
 def test_unported_svd_methods_raise():
     x = torch.zeros(1, 64, 64)
-    for method in ("randomized", "jacobi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            svd.truncated_svd(x, 4, method=method)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        svd.truncated_svd(x, 4, method="jacobi")
+    with pytest.raises(ValueError, match="unknown SVD method"):
+        svd.truncated_svd(x, 4, method="qr")
 
 
 def test_wrapper_rejects_bad_shapes():

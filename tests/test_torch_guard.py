@@ -3,7 +3,8 @@
 - `lrf_tpu_torch` and `chip_smoke.py` import neither JAX nor `lrf_tpu`,
   and the port's native coder never loads the JAX package's library.
 - Entry points run on the GPU unless asked for the CPU: with no CUDA they
-  raise instead of carrying on on the CPU.
+  raise instead of carrying on on the CPU; so does `make_mesh()`, whose
+  default is every CUDA device.
 - The kernel wrapper on CPU tensors runs the plain version and launches
   nothing.
 """
@@ -28,6 +29,7 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
         "import sys; sys.modules['jax'] = None\n"
         "import lrf_tpu_torch\n"
         "import lrf_tpu_torch.ops.bcd_kernel, lrf_tpu_torch.parallel.encode, lrf_tpu_torch.parallel.decode\n"
+        "import lrf_tpu_torch.parallel.mesh, lrf_tpu_torch.parallel.distributed\n"
         "import lrf_tpu_torch.native.fibercodec, lrf_tpu_torch.ops.entropy\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
@@ -122,7 +124,11 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "entry", ["qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "encode_batches", "decode_batches", "state"]
+    "entry",
+    [
+        "qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "encode_batches", "decode_batches", "state",
+        "make_mesh", "mesh_of_cuda",
+    ],
 )
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
@@ -137,6 +143,8 @@ def test_default_device_raises_without_cuda(entry):
         "encode_batches": lambda: next(lrf_tpu_torch.sharded_qmf_encode_batches([img[None]], quality=10)),
         "decode_batches": lambda: next(lrf_tpu_torch.sharded_qmf_decode_batches([[stream]])),
         "state": lambda: lrf_tpu_torch.state_from_numpy(np.zeros((1, 4, 2)), np.zeros((1, 4, 2)), device="cuda"),
+        "make_mesh": lambda: lrf_tpu_torch.make_mesh(),
+        "mesh_of_cuda": lambda: lrf_tpu_torch.make_mesh(data=2, devices=["cuda:0", "cuda:1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -1,0 +1,147 @@
+"""The port's device meshes against one device and the JAX package's meshes.
+
+- `make_mesh` shapes and errors; `Mesh.split_batch` / `Mesh.replicate`.
+- A data mesh of 8 (`["cpu"] * 8`) gives the one device's streams byte for
+  byte, for every transport and both inits, and the one device's pixels
+  on decode.
+- Patch-sharded meshes (4 x 2 and 1 x 8): per-image PSNR within 0.2 dB of
+  per-image `qmf_encode`, and of the JAX package's `make_mesh(data=4,
+  patch=2)` streams on its 8 virtual CPU devices; deterministic.
+- The fused kernel is refused under patch sharding.
+
+    python -m pytest --noconftest -m cuda tests/test_torch_mesh.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import lrf_tpu_torch as lt
+from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
+from torch_images import photos
+
+KW = dict(quality=20, num_iters=3)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return photos(8, 48, 64, seed=4)
+
+
+def _psnr(ref, dec):
+    return float(lt.psnr(ref, dec))
+
+
+def test_make_mesh_shapes_and_errors():
+    mesh = lt.make_mesh(devices=["cpu"] * 8)
+    assert mesh.shape == {"data": 8, "patch": 1} and mesh.size == 8 and mesh.first == torch.device("cpu")
+    assert lt.make_mesh(patch=2, devices=["cpu"] * 8).shape == {"data": 4, "patch": 2}
+    assert lt.make_mesh(data=1, patch=8, devices=["cpu"] * 8).shape == {"data": 1, "patch": 8}
+    assert as_mesh("cpu").shape == {"data": 1, "patch": 1} and as_mesh(mesh) is mesh
+    for data, patch, n in ((3, 1, 8), (2, 2, 2), (0, 1, 0), (None, 3, 8)):
+        with pytest.raises(ValueError, match="does not fit"):
+            lt.make_mesh(data=data, patch=patch, devices=["cpu"] * n)
+    with pytest.raises(ValueError, match="rectangular"):
+        Mesh([["cpu", "cpu"], ["cpu"]])
+    with pytest.raises(ValueError, match="unsupported"):
+        lt.make_mesh(devices=["meta"])
+    x = torch.arange(8 * 3).reshape(8, 3)
+    parts = lt.make_mesh(data=4, patch=2, devices=["cpu"] * 8).split_batch(x)
+    assert [p.tolist() for p in parts] == [x[2 * i : 2 * i + 2].tolist() for i in range(4)]
+    with pytest.raises(ValueError, match="evenly"):
+        mesh.split_batch(x[:6])
+    assert len(mesh.replicate(x)) == 8 and len(lt.make_mesh(data=4, patch=2, devices=["cpu"] * 8).replicate(x, 1)) == 2
+
+
+@pytest.mark.parametrize("pack", [None, "flat", "entropy"])
+@pytest.mark.parametrize("init", ["svd", "fast"])
+def test_data_mesh_equals_one_device(batch, pack, init):
+    mesh = lt.make_mesh(devices=["cpu"] * 8)
+    want = lt.sharded_qmf_encode_batch(batch, device="cpu", pack=pack, init=init, **KW)
+    assert lt.sharded_qmf_encode_batch(batch, device=mesh, pack=pack, init=init, **KW) == want
+    if pack is None and init == "svd":
+        assert want == [lt.qmf_encode(img, device="cpu", **KW) for img in batch]
+        dec = lt.sharded_qmf_decode_batch(want, device=mesh)
+        np.testing.assert_array_equal(dec, lt.sharded_qmf_decode_batch(want, device="cpu"))
+        on_device = lt.sharded_qmf_decode_batch(want, device=mesh, out="device")
+        assert torch.equal(on_device, torch.from_numpy(dec))
+        halves = [batch[:4], batch[4:]]
+        got = list(lt.sharded_qmf_encode_batches(halves, device=lt.make_mesh(devices=["cpu"] * 4), **KW))
+        assert got == [want[:4], want[4:]]
+        outs = list(lt.sharded_qmf_decode_batches(got, device=lt.make_mesh(data=2, patch=2, devices=["cpu"] * 4)))
+        np.testing.assert_array_equal(np.concatenate(outs), dec)
+
+
+@pytest.fixture(scope="module")
+def jax_patch_streams(batch):
+    import jax
+
+    from lrf_tpu.parallel.encode import sharded_qmf_encode_batch
+    from lrf_tpu.parallel.mesh import make_mesh
+
+    assert len(jax.devices()) == 8
+    return sharded_qmf_encode_batch(batch, make_mesh(data=4, patch=2), **KW)
+
+
+@pytest.mark.parametrize("data,patch", [(4, 2), (1, 8)])
+def test_patch_sharded_psnr(batch, jax_patch_streams, data, patch):
+    import lrf_tpu
+
+    mesh = lt.make_mesh(data=data, patch=patch, devices=["cpu"] * 8)
+    streams = lt.sharded_qmf_encode_batch(batch, device=mesh, **KW)
+    assert streams == lt.sharded_qmf_encode_batch(batch, device=mesh, **KW)  # deterministic
+    dec = lt.sharded_qmf_decode_batch(streams, device=mesh)
+    for i, img in enumerate(batch):
+        p_shard = _psnr(img, dec[i])
+        p_single = _psnr(img, lt.qmf_decode(lt.qmf_encode(img, device="cpu", **KW), device="cpu"))
+        p_jax = _psnr(img, np.asarray(lrf_tpu.qmf_decode(jax_patch_streams[i])))
+        assert abs(p_shard - p_single) < 0.2 and abs(p_shard - p_jax) < 0.2, (i, p_shard, p_single, p_jax)
+        np.testing.assert_array_equal(dec[i], np.asarray(lrf_tpu.qmf_decode(streams[i])))
+
+
+def test_patch_sharded_fast_init_and_packs(batch):
+    mesh = lt.make_mesh(data=2, patch=4, devices=["cpu"] * 8)
+    raw = lt.sharded_qmf_encode_batch(batch, device=mesh, init="fast", **KW)
+    assert lt.sharded_qmf_encode_batch(batch, device=mesh, init="fast", pack="entropy", **KW) == raw
+    single = lt.sharded_qmf_encode_batch(batch, device="cpu", init="fast", **KW)
+    for i, img in enumerate(batch):
+        p_shard = _psnr(img, lt.qmf_decode(raw[i], device="cpu"))
+        assert abs(p_shard - _psnr(img, lt.qmf_decode(single[i], device="cpu"))) < 0.2, i
+
+
+def test_kernel_refused_under_patch_sharding(batch):
+    patch_mesh = lt.make_mesh(data=4, patch=2, devices=["cpu"] * 8)
+    with pytest.raises(NotImplementedError, match="patch"):
+        lt.build_sharded_encoder(patch_mesh, (48, 64), backend="kernel", **KW)
+    with pytest.raises(ValueError, match="backend"):
+        lt.build_sharded_encoder("cpu", (48, 64), backend="pallas", **KW)
+    # on a data mesh the kernel's wrapper runs (its plain version on CPU tensors)
+    data_mesh = lt.make_mesh(devices=["cpu"] * 8)
+    assert lt.sharded_qmf_encode_batch(batch, device=data_mesh, backend="kernel", **KW) == lt.sharded_qmf_encode_batch(
+        batch, device="cpu", **KW
+    )
+    with pytest.raises(ValueError, match="evenly"):
+        lt.sharded_qmf_encode_batch(batch[:6], device=data_mesh, **KW)
+
+
+@pytest.mark.cuda
+def test_meshes_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the BCD kernel has no CPU mode)")
+    from lrf_tpu_torch.ops import bcd_kernel
+
+    images = photos(4, 96, 128, seed=6)
+    want = lt.sharded_qmf_encode_batch(images, quality=10)
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    data_mesh = lt.make_mesh(data=2, devices=(cards * 2)[:2])
+    before = bcd_kernel.KERNEL.counts["bcd_cluster"]
+    got = lt.sharded_qmf_encode_batch(images, quality=10, device=data_mesh)
+    assert bcd_kernel.KERNEL.counts["bcd_cluster"] == before + 4  # Y and Cb+Cr per row
+    assert sum(a == b for a, b in zip(got, want)) >= len(images) - 1
+    patch_mesh = lt.make_mesh(data=1, patch=2, devices=(cards * 2)[:2])
+    before = bcd_kernel.KERNEL.launches
+    sharded = lt.sharded_qmf_encode_batch(images, quality=10, device=patch_mesh)
+    assert bcd_kernel.KERNEL.launches == before  # the plain sweeps
+    for i, img in enumerate(images):
+        p_shard = _psnr(img, lt.qmf_decode(sharded[i], device="cpu"))
+        assert abs(p_shard - _psnr(img, lt.qmf_decode(want[i], device="cpu"))) < 0.2, i
