@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`lrf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases 3,5,6,7,8,9,10]
 
 Phases, each of which raises (exit code != 0) when a check fails:
 
@@ -48,19 +48,34 @@ Phases, each of which raises (exit code != 0) when a check fails:
    upload bytes, `unpack_chunks_device`'s device ms, one-shot and 8-batch
    pipelined decode rates of both, in turns;
 9. meshes and processes: a data mesh over every visible card (and over
-   `cuda:0` twice on a one-card machine): streams equal to the one device's
-   (or all but 2, those within 0.2 dB), two cluster-kernel launches per
-   shard; a patch mesh of 2 (the cards, or `cuda:0` twice) on 8 images: no
-   kernel launch, PSNR within 0.2 dB of the unsharded encode; a
-   two-process `distributed_encode` (gloo; this script re-run with
-   `--dist-worker`, both processes on the card) of 16 images: streams in
-   order, equal to one process's encodes of the same shards.
+   `cuda:0` twice on a one-card machine), each row dispatched from its own
+   host thread: streams equal to the one device's (or all but 2, those
+   within 0.2 dB), two cluster-kernel launches per shard, its encode time
+   beside one card's in the same run, and on several rows a
+   `torch.profiler` trace of each device's kernel span; a patch mesh of 2
+   (the cards, or `cuda:0` twice) on 8 images: no kernel launch, PSNR
+   within 0.2 dB of the unsharded encode, no synchronizing call inside
+   `sharded_bcd`'s sweep loop (`torch.cuda.set_sync_debug_mode`), its
+   first and best-of-3 times and a profiler table; a two-process
+   `distributed_encode` (gloo; this script re-run with `--dist-worker`,
+   both processes on the card) of 16 images: streams in order, equal to
+   one process's encodes of the same shards;
+10. eval: `eval_compression` with `qmf_encode` / `qmf_decode` of 4 bench
+   images at quality 10, 25 and 40: bpp, PSNR, SSIM, encode, decode and
+   encode device ms; each stack's shape and kernel (q10 and q25 launch
+   only the cluster kernel, q40's Y stack `bcd.cu`); PSNR and SSIM on the
+   card equal to the CPU's within 1e-5; `bcd.cu` timed at the q40 Y stack;
+   `device_benchmark` of the bench encode (five runs taken in phase 4
+   right after its three timed calls, so both see the same host): its best
+   within the spread of those calls (or twice its own deviation) of theirs.
 
 It prints one JSON line of per-kernel numbers (times summed over the two
 main-path shapes), then as its last line
 `{"ok": true, "device": {...}}`. It needs one CUDA device; without one it
 exits with code 1 and prints no result. It imports neither JAX nor
-`lrf_tpu`.
+`lrf_tpu`. `--phases` runs 1, 2, 4 and the phases named (for example
+`--phases 9,10` on a four-card machine); such a partial run prints no
+result lines. Profiler traces go to `chiprun_out/traces/`.
 """
 
 from __future__ import annotations
@@ -103,6 +118,8 @@ MAIN_SHAPES = [(64, 6144, 64, 6), (128, 1536, 64, 3)]
 TIMED_SHAPES = MAIN_SHAPES + [(4, 49152, 64, 13)]
 # What each kernel replaces (the TPU kernels' pallas_call sites).
 REPLACES = "lrf_tpu/ops/bcd_pallas.py:519 (K1, K2), lrf_tpu/ops/bcd_pallas.py:722 (K3)"
+# Phases that --phases can leave out; 1 (card), 2 (build) and 4 (main path) always run.
+OPTIONAL_PHASES = (3, 5, 6, 7, 8, 9, 10)
 
 
 class CheckFailed(AssertionError):
@@ -388,6 +405,10 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     check(worst < 0.2, f"PSNR differs from the plain-BCD encode by {worst} dB")
     same = sum(a == c for a, c in zip(streams, plain_streams))
 
+    # device_benchmark of the same encode right after the three calls, so
+    # both see the same host; phase 10 holds the two against each other
+    bench = lt.device_benchmark(lambda: lt.sharded_qmf_encode_batch(images, "cuda", 10), warmup=0, repeats=5,
+                                pixels=b * h * w)
     enc_best, dec_best = min(enc_s), min(dec_s)
     print(f"main path: PSNR mean {p_kernel.mean():.4f} dB (min {p_kernel.min():.4f}); plain-BCD encode "
           f"max |dPSNR| {worst:.6f} dB, {same}/{b} streams byte-identical")
@@ -396,7 +417,8 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     print(f"main path [{label}]: of the {device_ms:.3f} ms device part, front end (color, chroma "
           f"downsample, pad, patchify) {front_ms:.3f} ms, init (Grams + eigh of {b + 2 * b} 64x64 matrices + "
           f"signs) {init_ms:.3f} ms; host part (fetch + native serializer) {enc_best * 1e3 - device_ms:.2f} ms")
-    return dict(launches=launches, enc_ms=enc_best * 1e3, device_ms=device_ms, streams=streams, dec=dec)
+    return dict(launches=launches, enc_ms=enc_best * 1e3, enc_all_ms=[t * 1e3 for t in enc_s], bench=bench,
+                device_ms=device_ms, streams=streams, dec=dec)
 
 
 def phase_variants(torch, lt, seed: int):
@@ -732,6 +754,51 @@ def dist_worker(rank: int, port: int, out_path: str, seed: int) -> int:
     return 0
 
 
+def n_syncs(sites: list[str]) -> int:
+    """Total count over `sync_sites`' "N x site" lines."""
+    return sum(int(line.split(" x ", 1)[0]) for line in sites)
+
+
+def device_spans(torch, prof) -> list[str]:
+    """Per device, from a `torch.profiler` trace: kernel count, busy ms
+    (kernel time summed) and the span from the first kernel's start to the
+    last one's end, relative to the earliest kernel on any device."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        return ["no device kernel in the trace"]
+    t0 = min(e.time_range.start for e in kernels)
+    out = []
+    for dev in sorted({e.device_index for e in kernels}):
+        ev = [e for e in kernels if e.device_index == dev]
+        busy = sum(e.time_range.end - e.time_range.start for e in ev) / 1e3
+        start = (min(e.time_range.start for e in ev) - t0) / 1e3
+        end = (max(e.time_range.end for e in ev) - t0) / 1e3
+        out.append(f"cuda:{dev} {len(ev)} kernels, busy {busy:.3f} ms, from {start:.3f} to {end:.3f} ms")
+    return out
+
+
+def patch_mesh_syncs(torch, lt, images, mesh) -> tuple[list[str], list[str]]:
+    """The synchronizing CUDA calls inside `sharded_bcd`'s sweep loop (run
+    on the mesh's shards of the images' Y and Cb+Cr stacks, after their
+    sharded init), and those of one whole patch-sharded encode."""
+    from lrf_tpu_torch.ops import bcd as bcd_mod
+    from lrf_tpu_torch.ops import color, pad, patch, resample
+
+    devices = mesh.devices[0]
+    x = torch.from_numpy(images).to(devices[0])
+    chans = resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))
+    stacks = [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8)) for c in chans]
+    stacks = [stacks[0], torch.cat(stacks[1:], dim=0)]
+    ranks = lt.build_sharded_encoder("cuda", images.shape[-2:], quality=10)[1]["rank"][:2]
+    shards = [[p.to(d) for p, d in zip(torch.tensor_split(s, len(devices), dim=1), devices)] for s in stacks]
+    inits = bcd_mod.sharded_svd_init(shards, ranks, BOUNDS)
+    loop = sync_sites(torch, lambda: [bcd_mod.sharded_bcd(xs, us, v, num_iters=ITERS, bounds=BOUNDS)
+                                      for xs, (us, v) in zip(shards, inits)])
+    whole = sync_sites(torch, lambda: lt.sharded_qmf_encode_batch(images, quality=10, device=mesh))
+    return loop, whole
+
+
 def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
     """Phase 9: data and patch meshes, and two processes."""
     import socket
@@ -740,8 +807,11 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
     from lrf_tpu_torch.models.container import separate_bytes
 
     count = torch.cuda.device_count()
-    print(f"mesh [{label}]: {count} visible CUDA device(s)")
+    peers = [f"{i}->{j}" for i in range(count) for j in range(count) if i != j and torch.cuda.can_device_access_peer(i, j)]
+    print(f"mesh [{label}]: {count} visible CUDA device(s); peer access {peers or 'none'}")
     images = load_images(seed)
+    one_s, _ = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda"))
+    print(f"mesh [{label}]: one card (cuda:0) encodes the {len(images)} images in {one_s * 1e3:.2f} ms (best of 3)")
     meshes = [lt.make_mesh()]
     if count == 1:
         meshes.append(lt.make_mesh(data=2, devices=["cuda:0", "cuda:0"]))
@@ -757,22 +827,41 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
         dec = lt.sharded_qmf_decode_batch(got, device=mesh)
         check(all(np.array_equal(dec[i], lt.qmf_decode(s)) for i, s in enumerate(got)), f"{mesh}: decode differs")
         print(f"mesh [{label}]: data mesh {mesh}: {same}/{len(got)} streams equal to one device's; cluster-kernel "
-              f"launches {launches['bcd_cluster'] // rows} per shard ({rows} shards); encode {t * 1e3:.2f} ms", flush=True)
+              f"launches {launches['bcd_cluster'] // rows} per shard ({rows} shards); encode {t * 1e3:.2f} ms (best of 3) "
+              f"against {one_s * 1e3:.2f} ms on one card in this run ({one_s / t:.3f}x)", flush=True)
+        if rows > 1:
+            with lt.trace(os.path.join(HERE, "chiprun_out", "traces")) as prof:
+                lt.sharded_qmf_encode_batch(images, quality=10, device=mesh)
+            for line in device_spans(torch, prof):
+                print(f"mesh [{label}]: data mesh {mesh} traced: {line}")
 
     small = images[:8]
     want = lt.sharded_qmf_encode_batch(small, quality=10, device="cuda")
     cards = [f"cuda:{i}" for i in range(count)]
     patch_mesh = lt.make_mesh(data=1, patch=2, devices=cards[:2] if count >= 2 else ["cuda:0", "cuda:0"])
     launches = bk.KERNEL.launches
-    t, got = best_s(lambda: lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh), 1)
+    first, got = best_s(lambda: lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh), 1)
     check(bk.KERNEL.launches == launches, "the patch-sharded encode launched a BCD kernel")
-    check(got == lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh), "patch-sharded encode not deterministic")
+    t, again = best_s(lambda: lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh))
+    check(got == again, "patch-sharded encode not deterministic")
     dp = per_image_psnr(small, lt.sharded_qmf_decode_batch(got, device=patch_mesh)) - per_image_psnr(
         small, lt.sharded_qmf_decode_batch(want, device="cuda"))
     check(bool(np.all(np.abs(dp) < 0.2)), f"patch-sharded PSNR differs by up to {np.abs(dp).max()} dB")
+    loop_syncs, encode_syncs = patch_mesh_syncs(torch, lt, small, patch_mesh)
     print(f"mesh [{label}]: patch mesh {patch_mesh} on {len(small)} x 512x768: plain sweeps across 2 shards (0 kernel "
-          f"launches), {t * 1e3:.1f} ms; PSNR within {np.abs(dp).max():.6f} dB of the unsharded encode "
-          f"(mean {dp.mean():+.6f}); {sum(a == c for a, c in zip(got, want))}/{len(small)} streams equal", flush=True)
+          f"launches), {t * 1e3:.1f} ms (best of 3; first call {first * 1e3:.1f} ms); syncs inside sharded_bcd's sweep "
+          f"loop {n_syncs(loop_syncs)}, in the whole encode {n_syncs(encode_syncs)}; PSNR within "
+          f"{np.abs(dp).max():.6f} dB of the unsharded encode (mean {dp.mean():+.6f}); "
+          f"{sum(a == c for a, c in zip(got, want))}/{len(small)} streams equal", flush=True)
+    for line in loop_syncs + encode_syncs:
+        print(f"mesh [{label}]: patch mesh sync: {line}")
+    check(not loop_syncs, f"sharded_bcd's sweep loop synchronized with the host: {loop_syncs}")
+    with lt.trace(os.path.join(HERE, "chiprun_out", "traces")) as prof:
+        lt.sharded_qmf_encode_batch(small, quality=10, device=patch_mesh)
+    table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12, max_name_column_width=48)
+    print(f"mesh [{label}]: patch mesh traced (torch.profiler, ops by host self time):\n{table}")
+    for line in device_spans(torch, prof):
+        print(f"mesh [{label}]: patch mesh traced: {line}")
 
     data16 = load_images(seed, count=16)
     with socket.socket() as s:
@@ -803,11 +892,91 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
           f"to its encode of all 16; {dist_s:.1f} s with process start-up", flush=True)
 
 
+def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
+    """Phase 10: `eval_compression` of 4 bench images at q10, q25 and q40
+    on the card, the kernel each stack launched, card metrics against CPU
+    metrics, `bcd.cu` at the q40 Y stack, and `device_benchmark` of the
+    bench encode against phase 4's three calls."""
+    from lrf_tpu_torch.ops import bcd as bcd_mod
+    from lrf_tpu_torch.ops import color, pad, patch, resample
+    from lrf_tpu_torch.utils import metrics as tm
+
+    images = load_images(seed)
+    _, _, h, w = images.shape
+    chroma = resample.scaled_size((h, w), (0.5, 0.5))
+    ms = [(h // 8) * (w // 8), (chroma[0] // 8) * (chroma[1] // 8), (chroma[0] // 8) * (chroma[1] // 8)]
+    q40_device_ms = []
+    for q in (10, 25, 40):
+        ranks = lt.build_sharded_encoder("cuda", (h, w), quality=q)[1]["rank"]
+        plans = [bk.KERNEL.plan(m, 64, r).variant for m, r in zip(ms, ranks)]
+        want = {name: plans.count(name) for name in bk.KERNEL.counts}
+        stacks = ", ".join(f"{c} (1, {m}, 64, {r}) -> {v}" for c, m, r, v in zip(("Y", "Cb", "Cr"), ms, ranks, plans))
+        print(f"eval [{label}] q{q}: stacks per image {stacks}", flush=True)
+        for i, img in enumerate(images[:4]):
+            for name in bk.KERNEL.counts:
+                bk.KERNEL.counts[name] = 0
+            out = lt.eval_compression(img, lt.qmf_encode, lt.qmf_decode, reconstruct=True, device="cuda", quality=q)
+            counts = dict(bk.KERNEL.counts)
+            check(counts == want, f"q{q} image {i}: launches {counts}, expected {want}")
+            rec = out["reconstructed"]
+            cpu = {"PSNR (dB)": float(tm.psnr(torch.from_numpy(img), torch.from_numpy(rec))),
+                   "SSIM": float(tm.ssim(torch.from_numpy(img), torch.from_numpy(rec)))}
+            for key, value in cpu.items():
+                check(abs(out[key] - value) <= 1e-5 * abs(value), f"q{q} image {i}: {key} {out[key]} on the card, "
+                      f"{value} on the CPU")
+            check(np.isfinite(out["PSNR (dB)"]) and out["PSNR (dB)"] > 15, f"q{q} image {i}: PSNR {out['PSNR (dB)']}")
+            if q == 40:
+                q40_device_ms.append(out["encoding device time (ms)"])
+            print(f"eval [{label}] q{q} image {i}: {out['bit rate (bpp)']:.4f} bpp, PSNR {out['PSNR (dB)']:.4f} dB, "
+                  f"SSIM {out['SSIM']:.6f} (CPU {cpu['PSNR (dB)']:.4f} dB, {cpu['SSIM']:.6f}); encode "
+                  f"{out['encoding time (ms)']:.2f} ms ({out['encoding device time (ms)']:.3f} ms device), decode "
+                  f"{out['decoding time (ms)']:.2f} ms; launches {counts}; {out['platform']}", flush=True)
+    # bcd.cu at the q40 Y stack of image 0, as the per-image encode runs it
+    r40 = lt.build_sharded_encoder("cuda", (h, w), quality=40)[1]["rank"][0]
+    x = torch.from_numpy(images[:1]).cuda()
+    y = patch.patchify(pad.pad_image(resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))[0], (8, 8)),
+                       (8, 8)).contiguous()
+    u0, v0, _ = bcd_mod.svd_init(y, r40, bounds=BOUNDS)
+    ref = bk.bcd_reference(y, u0, v0, num_iters=ITERS, bounds=BOUNDS)
+    uk, vk = run_variant(bk, y, u0, v0, BOUNDS, "bcd")
+    err = max(float((uk - ref[0]).abs().max()), float((vk - ref[1]).abs().max()))
+    eq = min(float((uk == ref[0]).float().mean()), float((vk == ref[1]).float().mean()))
+    check(eq > 0.85, f"bcd.cu at the q40 Y stack: equal share {eq}")
+    shape = tuple(y.shape) + (r40,)
+    q40 = dict(shape=shape, ms=cuda_ms(lambda: run_variant(bk, y, u0, v0, BOUNDS, "bcd"), 10),
+               plain_ms=cuda_ms(lambda: bk.bcd_reference(y, u0, v0, num_iters=ITERS), 3), err=err, eq=eq)
+    q40["bound_ms"], q40["bound_by"] = bcd_bound_ms(*shape, ITERS)
+    enc_dev = float(np.median(q40_device_ms))
+    print(f"eval [{label}] q40: bcd.cu at the Y stack {shape}: {q40['ms']:.4f} ms (CUDA events, mean of 10), 1 launch "
+          f"per image encode, plain {q40['plain_ms']:.4f} ms, bound {q40['bound_ms']:.6g} ms ({q40['bound_by']}, "
+          f"{100 * q40['bound_ms'] / q40['ms']:.2f}% of it); {100 * q40['ms'] / enc_dev:.1f}% of the median q40 encode's "
+          f"{enc_dev:.3f} device ms; max|diff| {err:g}, equal share {eq:.5f}", flush=True)
+
+    # device_benchmark of the bench encode (taken in phase 4, right after its
+    # three timed calls) against those three calls
+    db = main_run["bench"]
+    p4 = main_run["enc_all_ms"]
+    spread = max(p4) - min(p4)
+    gap = abs(db["min_ms"] - min(p4))
+    print(f"eval [{label}]: device_benchmark of the {len(images)}-image q10 encode: min {db['min_ms']:.2f} ms, mean "
+          f"{db['mean_ms']:.2f} +- {db['std_ms']:.2f} ms ({db['mpixels_per_s']:.3f} Mpix/s); phase 4's three calls "
+          f"{', '.join(f'{t:.2f}' for t in p4)} ms (spread {spread:.2f}); best against best {gap:.2f} ms apart", flush=True)
+    check(gap <= max(spread, 2 * db["std_ms"]), f"device_benchmark {db['min_ms']:.2f} ms disagrees with phase 4's "
+          f"{min(p4):.2f} ms beyond the spread {spread:.2f} ms")
+    return q40
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dist-worker", nargs=3, metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--phases", default=",".join(map(str, OPTIONAL_PHASES)),
+                    help="comma-separated phases to run besides 1, 2 and 4 (default: all); a partial run prints "
+                    "its readings but no result lines")
     args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",") if p}
+    if not phases <= set(OPTIONAL_PHASES):
+        ap.error(f"--phases takes some of {OPTIONAL_PHASES}")
     if args.dist_worker:
         rank, port, out_path = args.dist_worker
         return dist_worker(int(rank), int(port), out_path, args.seed)
@@ -840,17 +1009,45 @@ def main() -> int:
           f"loaded in {time.perf_counter() - t0:.2f} s (g++ {' '.join(native.CXX_FLAGS)}); backends {backends}; "
           f"{os.cpu_count()} host cores", flush=True)
 
-    per_shape = phase_kernel(torch, bk, bcd_mod, args.seed, main_path_stacks(torch, lt, bcd_mod, args.seed))
+    clock = [time.perf_counter()]
+
+    def lap(phase: int) -> None:
+        clock.append(time.perf_counter())
+        print(f"phase {phase}: {clock[-1] - clock[-2]:.1f} s", flush=True)
+
+    if 3 in phases:
+        per_shape = phase_kernel(torch, bk, bcd_mod, args.seed, main_path_stacks(torch, lt, bcd_mod, args.seed))
+        lap(3)
     main_run = phase_main_path(torch, lt, bk, args.seed, label)
-    kernel_ms = sum(per_shape[s]["ms"]["bcd_cluster"] for s in MAIN_SHAPES)
-    print(f"main path [{label}]: BCD kernel {kernel_ms:.3f} ms of the {main_run['device_ms']:.3f} ms device part "
-          f"({100 * kernel_ms / main_run['device_ms']:.1f}%) and of the {main_run['enc_ms']:.2f} ms encode "
-          f"({100 * kernel_ms / main_run['enc_ms']:.1f}%), from the phase-3 times at the same shapes")
-    phase_variants(torch, lt, args.seed)
-    batches = phase_host_tail(torch, lt, bk, args.seed, label)
-    phase_fast_init(torch, lt, bk, args.seed, label, main_run["streams"], main_run["dec"])
-    phase_dpack(torch, lt, args.seed, label, main_run["streams"], main_run["dec"], batches)
-    phase_mesh(torch, lt, bk, args.seed, label, main_run["streams"])
+    lap(4)
+    if 3 in phases:
+        kernel_ms = sum(per_shape[s]["ms"]["bcd_cluster"] for s in MAIN_SHAPES)
+        print(f"main path [{label}]: BCD kernel {kernel_ms:.3f} ms of the {main_run['device_ms']:.3f} ms device part "
+              f"({100 * kernel_ms / main_run['device_ms']:.1f}%) and of the {main_run['enc_ms']:.2f} ms encode "
+              f"({100 * kernel_ms / main_run['enc_ms']:.1f}%), from the phase-3 times at the same shapes")
+    if 5 in phases:
+        phase_variants(torch, lt, args.seed)
+        lap(5)
+    if 6 in phases:
+        batches = phase_host_tail(torch, lt, bk, args.seed, label)
+        lap(6)
+    if 7 in phases:
+        phase_fast_init(torch, lt, bk, args.seed, label, main_run["streams"], main_run["dec"])
+        lap(7)
+    if 8 in phases:
+        phase_dpack(torch, lt, args.seed, label, main_run["streams"], main_run["dec"],
+                    batches if 6 in phases else [main_run["streams"]])
+        lap(8)
+    if 9 in phases:
+        phase_mesh(torch, lt, bk, args.seed, label, main_run["streams"])
+        lap(9)
+    if 10 in phases:
+        phase_eval(torch, lt, bk, args.seed, label, main_run)
+        lap(10)
+    if phases != set(OPTIONAL_PHASES):
+        print(f"total: {time.perf_counter() - t_start:.1f} s; partial run (phases 1, 2, 4 and {sorted(phases)}): "
+              f"no result lines")
+        return 0
 
     main_keys = MAIN_SHAPES + [k for k in per_shape if isinstance(k, str)]
     entries = []

@@ -31,8 +31,19 @@ from lrf_tpu_torch.parallel.encode import (
     sharded_qmf_encode_batches,
 )
 from lrf_tpu_torch.parallel.mesh import Mesh, make_mesh
-from lrf_tpu_torch.utils.metrics import mse, psnr
-from lrf_tpu_torch.utils.transfer import state_from_numpy, to_host
+from lrf_tpu_torch.utils.eval import eval_compression, read_image
+from lrf_tpu_torch.utils.metrics import (
+    bits_per_pixel,
+    compression_ratio,
+    get_memory_usage,
+    mae,
+    mse,
+    psnr,
+    relative_error,
+    ssim,
+)
+from lrf_tpu_torch.utils.profiling import annotate, device_benchmark, trace
+from lrf_tpu_torch.utils.transfer import state_from_numpy, to_host, tree_to_host
 
 __all__ = [
     "qmf_encode",
@@ -54,10 +65,22 @@ __all__ = [
     "distributed_encode",
     "set_fiber_coder",
     "get_fiber_coder",
+    "mae",
     "mse",
+    "relative_error",
     "psnr",
+    "ssim",
+    "get_memory_usage",
+    "compression_ratio",
+    "bits_per_pixel",
+    "eval_compression",
+    "read_image",
+    "trace",
+    "annotate",
+    "device_benchmark",
     "state_from_numpy",
     "to_host",
+    "tree_to_host",
 ]
 
 __version__ = "0.1.0"

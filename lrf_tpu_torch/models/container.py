@@ -17,8 +17,11 @@ thread-pooled C++), with one of three backends (`set_fiber_coder`):
   level 12, ties to zlib; plain zlib-9 where the native coder was built
   without libdeflate, as the JAX package does without its library;
 - ``"zlib"``: bytes identical to the reference's `zlib.compress(fiber, 9)`;
-- ``"deflate"``: libdeflate at level 6; raises where the native coder was
-  built without libdeflate.
+- ``"deflate"``: libdeflate at level 6; where the native coder was built
+  without libdeflate, zlib at level 9 and one warning per process naming
+  the missing `libdeflate.h`, as the JAX package falls back to zlib
+  without its library. `get_fiber_coder()` still says "deflate" (what was
+  asked for); `native.fibercodec.backends()` says what was built.
 
 Every blob is a standard zlib stream, so the reference decoder reads them
 all. `encode_matrix_plain` is the plain pure-Python zlib version of

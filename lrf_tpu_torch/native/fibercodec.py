@@ -9,8 +9,11 @@ build writes a temporary file and renames it into place, so processes
 that build at the same moment never load a half-written library.
 
 Unlike the JAX package, nothing here falls back to pure-Python zlib: a
-failed build raises with the compiler's output, and asking for the
-libdeflate backend in a build without it raises naming the header.
+failed build raises with the compiler's output. Asking for the libdeflate
+backend in a build without it codes with zlib at level 9, as the JAX
+package does without its library, and warns once per process, naming the
+header. Every function takes the library as `lib`; None means the
+process's `LIB`, read at call time.
 Every call releases the GIL (ctypes does), so serializer threads overlap.
 """
 
@@ -24,6 +27,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import warnings
 import zlib
 from pathlib import Path
 from typing import Optional, Sequence
@@ -161,15 +165,29 @@ def backends() -> tuple[str, ...]:
     return LIB.backends()
 
 
-def _backend_id(backend: str, lib: NativeLib) -> int:
+_WARNED_NO_LIBDEFLATE = False
+
+
+def _backend(backend: str, level: int, lib: Optional[NativeLib]) -> tuple[int, int]:
+    """`(backend id, level)` the library runs for `backend` at `level`.
+
+    "deflate" in a build without libdeflate runs zlib at level 9, as the
+    JAX package does without its native library, and warns once per
+    process, naming the missing header.
+    """
+    global _WARNED_NO_LIBDEFLATE
     if backend not in _BACKENDS:
         raise ValueError(f"unknown coder backend {backend!r}; one of {tuple(_BACKENDS)}")
-    if backend == "deflate" and "deflate" not in lib.backends():
-        raise RuntimeError(
-            "coder backend 'deflate' needs libdeflate, and the native fiber coder was built without it "
-            "(libdeflate.h was not found at build time)"
-        )
-    return _BACKENDS[backend]
+    if backend == "deflate" and "deflate" not in (lib or LIB).backends():
+        if not _WARNED_NO_LIBDEFLATE:
+            _WARNED_NO_LIBDEFLATE = True
+            warnings.warn(
+                "coder backend 'deflate' needs libdeflate, and the native fiber coder was built without it "
+                "(libdeflate.h was not found at build time): coding with zlib at level 9 instead",
+                RuntimeWarning, stacklevel=3,
+            )
+        return _BACKENDS["zlib"], 9
+    return _BACKENDS[backend], level
 
 
 def _check(rc: int, what: str) -> None:
@@ -192,14 +210,15 @@ def _ptr(a: np.ndarray, ctype):
 
 
 def compress_fibers(
-    matrix: np.ndarray, mode: str, level: int = 9, backend: str = "zlib", lib: NativeLib = LIB
+    matrix: np.ndarray, mode: str, level: int = 9, backend: str = "zlib", lib: Optional[NativeLib] = None
 ) -> list[bytes]:
     """DEFLATE each fiber (column for "col", row for "row") of a 2-D array.
 
     "zlib" gives the bytes of CPython's `zlib.compress(fiber, level)`;
-    "deflate" uses libdeflate (raises where it was not compiled in).
+    "deflate" uses libdeflate (zlib-9, with a warning, where it was not
+    compiled in).
     """
-    backend_id = _backend_id(backend, lib)
+    backend_id, level = _backend(backend, level, lib)
     if backend_id == 2:
         raise ValueError("compress_fibers takes 'zlib' or 'deflate'; the 'best' race is container._compress_fibers")
     fibers = np.ascontiguousarray(matrix.T if mode == "col" else matrix)
@@ -210,7 +229,7 @@ def compress_fibers(
     cap = fiber_bytes + fiber_bytes // 1000 + 64  # zlib's compressBound, with room
     out = np.empty(num_fibers * cap, dtype=np.uint8)
     out_lens = np.empty(num_fibers, dtype=np.int64)
-    rc = lib.lib().lrf_compress_fibers2(
+    rc = (lib or LIB).lib().lrf_compress_fibers2(
         fibers.ctypes.data_as(ctypes.c_void_p), num_fibers, fiber_bytes, level, backend_id,
         _ptr(out, ctypes.c_uint8), cap, _ptr(out_lens, ctypes.c_int64),
     )
@@ -218,7 +237,7 @@ def compress_fibers(
     return [out[i * cap : i * cap + out_lens[i]].tobytes() for i in range(num_fibers)]
 
 
-def decompress_fibers_raw(blobs: Sequence[bytes], dtype, lib: NativeLib = LIB) -> np.ndarray:
+def decompress_fibers_raw(blobs: Sequence[bytes], dtype, lib: Optional[NativeLib] = None) -> np.ndarray:
     """Inflate fibers to the raw fiber-major `(num_fibers, per)` array, with
     no transpose (what `pack_values` reads). Every fiber must inflate to the
     size of the first one."""
@@ -228,14 +247,14 @@ def decompress_fibers_raw(blobs: Sequence[bytes], dtype, lib: NativeLib = LIB) -
     blob_lens = np.asarray([len(b) for b in blobs], dtype=np.int64)
     fiber_bytes = len(zlib.decompress(blobs[0]))  # the fiber size is in no header
     out = np.empty(len(blobs) * fiber_bytes, dtype=np.uint8)
-    rc = lib.lib().lrf_decompress_fibers(
+    rc = (lib or LIB).lib().lrf_decompress_fibers(
         b"".join(blobs), _ptr(blob_lens, ctypes.c_int64), len(blobs), _ptr(out, ctypes.c_uint8), fiber_bytes
     )
     _check(rc, "decompress_fibers")
     return out.view(dtype).reshape(len(blobs), -1)
 
 
-def decompress_fibers(blobs: Sequence[bytes], dtype, mode: str, lib: NativeLib = LIB) -> np.ndarray:
+def decompress_fibers(blobs: Sequence[bytes], dtype, mode: str, lib: Optional[NativeLib] = None) -> np.ndarray:
     """Inverse of `compress_fibers`: the 2-D array."""
     fibers = decompress_fibers_raw(blobs, dtype, lib)
     return fibers.T.copy() if mode == "col" else fibers
@@ -252,7 +271,7 @@ def dpack_decode_segments(
     chunk: int,
     main_words: int,
     row_words: int,
-    lib: NativeLib = LIB,
+    lib: Optional[NativeLib] = None,
 ) -> np.ndarray:
     """Decode the delta+Huffman transport (`ops/entropy.py::pack_segments`)
     straight to int8 factor values, segments concatenated."""
@@ -264,7 +283,7 @@ def dpack_decode_segments(
     lens32 = np.ascontiguousarray(lens, dtype=np.int32)
     codes32 = np.ascontiguousarray(codes, dtype=np.uint32)
     out = np.empty(int(values.sum()), np.int8)
-    rc = lib.lib().lrf_dpack_decode_segments(
+    rc = (lib or LIB).lib().lrf_dpack_decode_segments(
         main_b.ctypes.data_as(ctypes.c_void_p), exc_b.ctypes.data_as(ctypes.c_void_p), exc_b.size // (row_words * 4),
         _ptr(seg_base, ctypes.c_int64), _ptr(values, ctypes.c_int64), _ptr(ranks, ctypes.c_int64), len(values),
         _ptr(lens32, ctypes.c_int32), _ptr(codes32, ctypes.c_uint32), len(lens32), chunk, main_words, row_words,
@@ -276,7 +295,7 @@ def dpack_decode_segments(
 
 def pack_values(
     factor_bufs: Sequence[np.ndarray], b: int, ms: Sequence[int], rs: Sequence[int], lo: int, bits: int,
-    lib: NativeLib = LIB,
+    lib: Optional[NativeLib] = None,
 ) -> Optional[np.ndarray]:
     """Bit-pack fiber-major int8 factor buffers (factor k: `(B * R_k, M_k)`)
     into the decode upload's `(B, words)` uint32 layout, `30 // bits` values
@@ -287,7 +306,7 @@ def pack_values(
     out = np.empty((b, words), dtype=np.uint32)
     bufs = [np.ascontiguousarray(f, dtype=np.int8) for f in factor_bufs]
     ms_a, rs_a = _i64(ms), _i64(rs)
-    rc = lib.lib().lrf_pack_values(
+    rc = (lib or LIB).lib().lrf_pack_values(
         _ptrs(bufs), len(bufs), b, _ptr(ms_a, ctypes.c_int64), _ptr(rs_a, ctypes.c_int64), lo, bits, words,
         _ptr(out, ctypes.c_uint32),
     )
@@ -296,7 +315,7 @@ def pack_values(
 
 def dpack_encode(
     factor_bufs: Sequence[np.ndarray], b: int, ms: Sequence[int], rs: Sequence[int], lens: np.ndarray,
-    codes: np.ndarray, chunk: int, main_words: int, row_words: int, max_rows_budget: int, lib: NativeLib = LIB,
+    codes: np.ndarray, chunk: int, main_words: int, row_words: int, max_rows_budget: int, lib: Optional[NativeLib] = None,
 ):
     """Delta+Huffman encode of fiber-major int8 factor buffers into the
     entropy-transport layout (the host mirror of `pack_segments`). Returns
@@ -312,7 +331,7 @@ def dpack_encode(
     ms_a, rs_a = _i64(ms), _i64(rs)
     lens32 = np.ascontiguousarray(lens, dtype=np.int32)
     codes32 = np.ascontiguousarray(codes, dtype=np.uint32)
-    rc = lib.lib().lrf_dpack_encode(
+    rc = (lib or LIB).lib().lrf_dpack_encode(
         _ptrs(bufs), len(bufs), b, _ptr(ms_a, ctypes.c_int64), _ptr(rs_a, ctypes.c_int64),
         _ptr(lens32, ctypes.c_int32), _ptr(codes32, ctypes.c_uint32), len(lens32), chunk, main_words, row_words,
         max_rows_budget, _ptr(main, ctypes.c_uint32), _ptr(exc, ctypes.c_uint32), _ptr(chunk_rows, ctypes.c_uint8),
@@ -345,12 +364,12 @@ def _slice_streams(out: np.ndarray, stream_lens: np.ndarray) -> list[bytes]:
 
 def assemble_streams(
     factor_bufs: Sequence[np.ndarray], b: int, ms: Sequence[int], rs: Sequence[int], metadata: bytes,
-    inner_mds: Sequence[bytes], level: int, backend: str, lib: NativeLib = LIB,
+    inner_mds: Sequence[bytes], level: int, backend: str, lib: Optional[NativeLib] = None,
 ) -> list[bytes]:
     """Finished per-image container streams from `(B, M_k, R_k)` int8 factor
     blocks in one native call: gather, deflate and framing. Bytes equal the
     layered `encode_tensor_batch` + `combine_bytes` assembly."""
-    backend_id = _backend_id(backend, lib)
+    backend_id, level = _backend(backend, level, lib)
     bufs = [np.ascontiguousarray(f, dtype=np.int8) for f in factor_bufs]
     ms_a, rs_a = _i64(ms), _i64(rs)
     md_lens = _i64([len(m) for m in inner_mds])
@@ -358,7 +377,7 @@ def assemble_streams(
     out_cap = _stream_capacity(b, ms, rs, len(metadata), md_lens, cap)
     out = np.empty(out_cap, dtype=np.uint8)
     stream_lens = np.empty(b, dtype=np.int64)
-    rc = lib.lib().lrf_assemble_streams(
+    rc = (lib or LIB).lib().lrf_assemble_streams(
         _ptrs(bufs), len(bufs), b, _ptr(ms_a, ctypes.c_int64), _ptr(rs_a, ctypes.c_int64), cap, metadata,
         len(metadata), b"".join(inner_mds), _ptr(md_lens, ctypes.c_int64), level, backend_id,
         _ptr(out, ctypes.c_uint8), out_cap, _ptr(stream_lens, ctypes.c_int64),
@@ -370,12 +389,12 @@ def assemble_streams(
 def dpack_assemble_streams(
     main: np.ndarray, exc: np.ndarray, seg_row_base: np.ndarray, b: int, ms: Sequence[int], rs: Sequence[int],
     lens: np.ndarray, codes: np.ndarray, chunk: int, main_words: int, row_words: int, metadata: bytes,
-    inner_mds: Sequence[bytes], level: int, backend: str, lib: NativeLib = LIB,
+    inner_mds: Sequence[bytes], level: int, backend: str, lib: Optional[NativeLib] = None,
 ) -> list[bytes]:
     """The fused serializer: entropy-transport buffers -> finished per-image
     streams (Huffman decode, fiber deflate and framing per segment, each
     segment cache-resident). Same bytes as `assemble_streams`."""
-    backend_id = _backend_id(backend, lib)
+    backend_id, level = _backend(backend, level, lib)
     main_b = np.ascontiguousarray(main).view(np.uint8).reshape(-1)
     exc_b = np.ascontiguousarray(exc).view(np.uint8).reshape(-1)
     seg_base = _i64(seg_row_base)
@@ -387,7 +406,7 @@ def dpack_assemble_streams(
     out_cap = _stream_capacity(b, ms, rs, len(metadata), md_lens, cap)
     out = np.empty(out_cap, dtype=np.uint8)
     stream_lens = np.empty(b, dtype=np.int64)
-    rc = lib.lib().lrf_dpack_assemble_streams(
+    rc = (lib or LIB).lib().lrf_dpack_assemble_streams(
         main_b.ctypes.data_as(ctypes.c_void_p), exc_b.ctypes.data_as(ctypes.c_void_p), exc_b.size // (row_words * 4),
         _ptr(seg_base, ctypes.c_int64), len(ms_a), b, _ptr(ms_a, ctypes.c_int64), _ptr(rs_a, ctypes.c_int64), cap,
         _ptr(lens32, ctypes.c_int32), _ptr(codes32, ctypes.c_uint32), len(lens32), chunk, main_words, row_words,

@@ -238,9 +238,9 @@ def sum_shards(parts, device: torch.device) -> torch.Tensor:
     """Sum of per-shard partials, added in shard order on `device`: the
     fixed-order counterpart of a psum, so the result never depends on
     which shard finished first."""
-    total = parts[0].to(device)
+    total = parts[0].to(device, non_blocking=True)
     for part in parts[1:]:
-        total = total + part.to(device)
+        total = total + part.to(device, non_blocking=True)
     return total
 
 
@@ -267,14 +267,15 @@ def sharded_svd_init(stacks, ranks, bounds, method: str = "gram"):
     out = []
     for shards, rank, (s, v) in zip(stacks, ranks, pairs):
         rs = torch.sqrt(s)[..., None, :]
-        us = [left_factor(x, s.to(x.device), v.to(x.device)) * rs.to(x.device) for x in shards]
+        us = [left_factor(x, s.to(x.device, non_blocking=True), v.to(x.device, non_blocking=True))
+              * rs.to(x.device, non_blocking=True) for x in shards]
         us = [torch.nn.functional.pad(u, (0, rank - u.shape[-1])) for u in us]
         v = torch.nn.functional.pad(v * rs, (0, rank - v.shape[-1]))
         if bounds[0] is not None and bounds[1] is not None:
             pen_pos = sum_shards([clip_penalty(u, bounds) for u in us], home) + clip_penalty(v, bounds)
             pen_neg = sum_shards([clip_penalty(-u, bounds) for u in us], home) + clip_penalty(-v, bounds)
             sign = torch.where(pen_neg < pen_pos, -1.0, 1.0).to(v.dtype)
-            us = [u * sign.to(u.device) for u in us]
+            us = [u * sign.to(u.device, non_blocking=True) for u in us]
             v = v * sign
         out.append((us, v))
     return out
@@ -292,7 +293,7 @@ def sharded_bcd(shards, us, v, num_iters: int = 10, bounds=(-16, 15)):
     project = make_project(bounds)
     home = v.device
     for _ in range(num_iters):
-        vs = [v.to(x.device) for x in shards]
+        vs = [v.to(x.device, non_blocking=True) for x in shards]
         us = [update_columns(torch.matmul(x, vd), torch.matmul(vd.transpose(-1, -2), vd), u, 0.0, 0.0, project)
               for x, u, vd in zip(shards, us, vs)]
         a = sum_shards([torch.matmul(x.transpose(-1, -2), u) for x, u in zip(shards, us)], home)

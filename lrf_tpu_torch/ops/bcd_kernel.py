@@ -303,7 +303,11 @@ class _KernelLib:
                 b, m, n, r, plan.tile, num_iters, lo, hi, int(plan.state_in_smem), plan.smem_bytes, stream,
             )
         self._check(lib, err, f"{plan.variant} launch")
-        self.counts[plan.variant] += 1
+        self._count(plan.variant)
+
+    def _count(self, variant: str) -> None:
+        with self._lock:  # data-mesh rows launch from threads of their own
+            self.counts[variant] += 1
 
 
 KERNEL = _KernelLib()

@@ -1,6 +1,7 @@
 """Spatial resampling: adaptive area pooling and nearest-neighbour resize.
 
-PyTorch port of `lrf_tpu/ops/resample.py:24-105`. Index and window rules
+PyTorch port of `lrf_tpu/ops/resample.py:24-112`, with its aliases
+`chroma_downsampling` and `chroma_upsampling`. Index and window rules
 are computed on the host with numpy, exactly as the JAX package does:
 
 - area pooling is an exact reshape-mean for divisible sizes and a static
@@ -86,3 +87,8 @@ def chroma_upsample(
     y, cb, cr = ycbcr
     resize = nearest_resize if mode == "nearest" else area_resize
     return torch.cat([y, resize(cb, size), resize(cr, size)], dim=-3)
+
+
+# The reference's names.
+chroma_downsampling = chroma_downsample
+chroma_upsampling = chroma_upsample

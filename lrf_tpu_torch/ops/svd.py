@@ -10,7 +10,11 @@ PyTorch port of `lrf_tpu/ops/svd.py`:
   N x N eigh with three K x K ones, K = rank + 10;
 - `method="svd"`: `torch.linalg.svd`.
 
-The Jacobi eigensolver is not ported yet (ROADMAP queue 1, item 11).
+The Jacobi eigensolver is not ported yet (ROADMAP queue 1, item 4).
+
+`shared_truncated_svd` takes the shared column-Gram eigh for every method,
+as the JAX package does: there the method only picks the eigen-solver, and
+"jacobi" is the one other solver.
 
 Each method is split into a Gram half (`gram`, `top_pairs_from_gram`) and
 a row-local half (`left_factor`), so a caller that holds X in row shards
@@ -22,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_NOT_PORTED = {"jacobi": "the batched Jacobi eigensolver (ROADMAP queue 1, item 11)"}
+_NOT_PORTED = {"jacobi": "the batched Jacobi eigensolver (ROADMAP queue 1, item 4)"}
 _METHODS = ("gram", "randomized", "svd")
 
 
@@ -128,11 +132,12 @@ def shared_truncated_svd(stacks, ranks, method: str = "gram"):
 
     `stacks`: `(B_i, M_i, N)` tensors sharing N. Their column Grams are all
     `(N, N)`, so one `eigh` over the concatenated Gram batch serves every
-    stack. Returns a list of `(u, s, v)` like `truncated_svd`.
+    stack. Returns a list of `(u, s, v)` like `truncated_svd`. Every method
+    takes this path (`"svd"` and `"randomized"` give what `"gram"` gives);
+    in the JAX package the method picks only the solver of the shared eigh,
+    and its one other solver, `"jacobi"`, is not ported.
     """
     _check_method(method)
-    if method != "gram":
-        return [truncated_svd(x, r, method) for x, r in zip(stacks, ranks)]
     pairs = shared_top_pairs([gram(x) for x in stacks], [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)])
     return [(left_factor(x, s, v), s, v) for x, (s, v) in zip(stacks, pairs)]
 

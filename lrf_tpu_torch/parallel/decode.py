@@ -20,9 +20,12 @@ factor values for the upload in one of two transports:
 The JAX package picks the transport with `LRF_TPU_DECODE_TRANSPORT`; here
 it is the `transport=` keyword. The reconstruction (U V^T per channel,
 depatchify, unpad, nearest chroma upsample, YCbCr -> RGB, clamp-cast) runs
-batched; on a mesh the batch is split over the data rows, and every device
-of a row does the row's work (JAX's `P("data")` replicates it over the
-patch axis). Per-image results equal `lrf_tpu_torch.qmf_decode`'s.
+batched; on a mesh the batch is split over the data rows, each row
+dispatched from a host thread of its own (`Mesh.map_rows`: the YCbCr
+offset and the nearest upsample's indices are pageable uploads, which wait
+on the row's device), and every device of a row
+does the row's work (JAX's `P("data")` replicates it over the patch axis).
+Per-image results equal `lrf_tpu_torch.qmf_decode`'s.
 `sharded_qmf_decode_batches` overlaps the host stage of the next batch with
 the device work of the current one.
 """
@@ -257,10 +260,11 @@ def _device_decode(flat: np.ndarray, metadata, shapes, in_dtype, pack, mesh: Mes
     if kind == "dpack":  # one device by construction (_inflate_streams' gate)
         parts = [_reconstruct(torch.from_numpy(flat).to(mesh.first), metadata, shapes, in_dtype, pack)]
     else:
-        parts = []
-        for i, part in enumerate(mesh.split_batch(torch.from_numpy(flat))):
-            copies = [_reconstruct(x, metadata, shapes, in_dtype, pack) for x in mesh.replicate(part, row=i)]
-            parts.append(copies[0])
+        def decode_row(part, devices):
+            copies = [_reconstruct(part.to(d), metadata, shapes, in_dtype, pack) for d in devices]
+            return copies[0]
+
+        parts = mesh.map_rows(decode_row, mesh.split_batch(torch.from_numpy(flat)))
     if len(parts) == 1:
         return to_host(parts[0]) if out == "host" else parts[0]
     if out == "host":
@@ -288,7 +292,9 @@ def sharded_qmf_decode_batches(stream_batches, device="cuda", out: str = "host",
     Generator yielding one decoded `(B, 3, H, W)` array per input batch, in
     order. The host stage of batch i+1 (parse, native inflate and pack, on
     a worker thread, no torch state) overlaps the upload and reconstruction
-    of batch i on the calling thread, where all torch work stays.
+    of batch i on the calling thread, where all torch work stays, except
+    that a mesh with several data rows reconstructs each row on a thread of
+    its own (`Mesh.map_rows`).
     """
     _check_args(out, transport)
     mesh = as_mesh(device)

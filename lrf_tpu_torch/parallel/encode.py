@@ -17,11 +17,12 @@ downsample, pad, patchify, then the factorization of each channel's
   kernel on a GPU, one launch for Y and one for the merged chroma.
 
 On a mesh the batch is split contiguously over the data rows and each
-row's images run the pipeline above on the row's device, the kernel once
-per stack and row. With a patch axis > 1 each stack's M rows are split over
-the row's devices and factorized by the plain sweeps with their sums over
-M taken across the shards (`ops/bcd.py::sharded_bcd`); the fused kernel
-cannot reduce across shards inside its loop.
+row's images run the pipeline above on the row's device, from a host
+thread of its own (`Mesh.map_rows`), the kernel once per stack and row.
+With a patch axis > 1 each stack's M rows are split over the row's devices
+and factorized by the plain sweeps with their sums over M taken across the
+shards (`ops/bcd.py::sharded_bcd`); the fused kernel cannot reduce across
+shards inside its loop.
 
 The int8 factors, gathered on the mesh's first device, leave it raw
 (`pack=None`, the default), 5-bit packed (`"flat"`), or delta+Huffman
@@ -205,11 +206,12 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
     def factorize_sharded(stacks, stack_ranks, devices):
         """A data row's patch devices: each stack's M rows split over them,
         the init and the plain sweeps summed across the shards."""
-        shards = [[p.to(d) for p, d in zip(torch.tensor_split(x, len(devices), dim=1), devices)] for x in stacks]
+        shards = [[p.to(d, non_blocking=True) for p, d in zip(torch.tensor_split(x, len(devices), dim=1), devices)]
+                  for x in stacks]
         out = []
         for xs, (us, v) in zip(shards, sharded_svd_init(shards, stack_ranks, bounds, method)):
             us, v = sharded_bcd(xs, us, v, num_iters=num_iters, bounds=bounds)
-            out.append((torch.cat([u.to(devices[0]) for u in us], dim=1), v))
+            out.append((torch.cat([u.to(devices[0], non_blocking=True) for u in us], dim=1), v))
         return out
 
     def encode_row(images: torch.Tensor, devices):
@@ -231,7 +233,7 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
         return [f.to(dtype) for uv in per_stack for f in uv]
 
     def encode(images: torch.Tensor):
-        rows = [encode_row(x, devs) for x, devs in zip(mesh.split_batch(images), mesh.devices)]
+        rows = mesh.map_rows(encode_row, mesh.split_batch(images))
         factors = rows[0] if len(rows) == 1 else [torch.cat([r[k].to(mesh.first) for r in rows]) for k in range(6)]
         if pack == "entropy":
             seg_base, main, exc = _entropy.pack_segments(factors, max_exc_rows=exc_rows)
@@ -442,9 +444,9 @@ def _serialize_plain(host_factors, metadata, b: int, level: int = 9) -> list[byt
 
 def sharded_qmf_encode_batch(
     images,
+    device="cuda",
     quality: Optional[float | tuple] = None,
     rank: Optional[int | tuple] = None,
-    device="cuda",
     **config,
 ) -> list[bytes]:
     """Encode a `(B, 3, H, W)` uint8 batch into per-image QMF byte streams.
@@ -456,7 +458,8 @@ def sharded_qmf_encode_batch(
     batch that overflows the entropy pack's row budget is re-encoded with
     the flat pack (same bytes). `device` may be a `Mesh`: on the CPU a data
     mesh gives the one device's bytes, and a patch-sharded one near-equal
-    streams (the sums over M are split).
+    streams (the sums over M are split). The arguments are in the JAX
+    package's order, `(images, mesh, quality, rank, **config)`.
     """
     mesh = as_mesh(device)
     images = _to_device(images, mesh)
@@ -466,15 +469,15 @@ def sharded_qmf_encode_batch(
     try:
         host_out = _fetch_encoded(HostCopy(fn(images)), pack_spec)
     except EntropyOverflowError:
-        return sharded_qmf_encode_batch(images, quality=quality, rank=rank, device=mesh, **{**config, "pack": "flat"})
+        return sharded_qmf_encode_batch(images, device=mesh, quality=quality, rank=rank, **{**config, "pack": "flat"})
     return _serialize_batch(host_out, pack_spec, metadata, b)
 
 
 def sharded_qmf_encode_batches(
     batches,
+    device="cuda",
     quality: Optional[float | tuple] = None,
     rank: Optional[int | tuple] = None,
-    device="cuda",
     depth: int = 3,
     **config,
 ):
@@ -484,10 +487,14 @@ def sharded_qmf_encode_batches(
     encode is dispatched and its device -> pinned-host copy started on the
     calling thread, up to `depth` batches ahead of the fetch; fetched
     buffers go to two serializer workers (native, GIL-released C++), so
-    device work, copies and host DEFLATE overlap. All torch and CUDA calls
-    stay on the calling thread; the workers touch only numpy and the native
-    library. A batch that overflows the entropy row budget is re-encoded
-    with the flat pack. Streams equal `sharded_qmf_encode_batch`'s.
+    device work, copies and host DEFLATE overlap. The serializer workers
+    touch only numpy and the native library, never torch. The one
+    exception to keeping torch calls on the calling thread is a mesh with
+    several data rows: the encoder dispatches each row from a thread of its
+    own (`Mesh.map_rows`) and joins them before it returns. A batch that
+    overflows the entropy row budget is re-encoded with the flat pack.
+    Streams equal `sharded_qmf_encode_batch`'s. The arguments are in the
+    JAX package's order: `(batches, mesh, quality, rank, depth)`.
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")

@@ -11,11 +11,17 @@ Port of `lrf_tpu/parallel/mesh.py`. The codec's two scaling axes form a
 
 A device may appear more than once (the CPU has one torch device, and one
 card can stand in for several), so the cross-shard code runs anywhere.
+
+`Mesh.map_rows` runs per-row work on one host thread per data row, so a
+row whose ops wait on the host (cuSOLVER's eigh, pageable copies) does not
+hold back the other rows' devices.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -60,6 +66,39 @@ class Mesh:
         in grid order (JAX's `replicated`, `P()`)."""
         rows = self.devices if row is None else (self.devices[row],)
         return [x.to(d) for r in rows for d in r]
+
+    def map_rows(self, fn: Callable, parts: Sequence) -> list:
+        """`[fn(parts[i], devices[i]) for each data row i]`, in row order.
+
+        With several rows, each row runs on its own host thread with its
+        first device as the current CUDA device, so its ops go to that
+        device's current stream; the calling thread joins them all and
+        re-raises the first row's error. A one-row mesh runs `fn` on the
+        calling thread.
+        """
+        if len(self.devices) == 1:
+            return [fn(parts[0], self.devices[0])]
+        results: list = [None] * len(self.devices)
+        errors: list = [None] * len(self.devices)
+
+        def run(i: int) -> None:
+            first = self.devices[i][0]
+            try:
+                with torch.cuda.device(first) if first.type == "cuda" else contextlib.nullcontext():
+                    results[i] = fn(parts[i], self.devices[i])
+            except BaseException as e:  # handed to the calling thread below
+                errors[i] = e
+
+        threads = [threading.Thread(target=run, args=(i,), name=f"lrf_tpu_torch row {i}")
+                   for i in range(len(self.devices))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for e in errors:
+            if e is not None:
+                raise e
+        return results
 
     def __repr__(self) -> str:
         return f"Mesh({[[str(d) for d in row] for row in self.devices]})"

@@ -3,7 +3,8 @@
 - `resolve_device` turns an entry point's `device=` into a `torch.device`
   and raises when CUDA is asked for and absent: nothing silently runs on
   the CPU.
-- `to_host` is the port of `lrf_tpu/utils/transfer.py:57`.
+- `to_host` and `tree_to_host` are the ports of
+  `lrf_tpu/utils/transfer.py:57-83`.
 - `HostCopy` is the counterpart of jax's `copy_to_host_async`: device ->
   pinned-host copies started at once, read after a CUDA event.
 - `state_from_numpy` carries the JAX package's factor state (numpy arrays
@@ -47,6 +48,15 @@ def to_host(x) -> np.ndarray:
     if isinstance(x, np.ndarray):
         return x
     return x.detach().cpu().numpy()
+
+
+def tree_to_host(tree):
+    """`to_host` over nested lists, tuples and dicts of tensors or arrays."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_host(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: tree_to_host(v) for k, v in tree.items()}
+    return to_host(tree)
 
 
 class HostCopy:

@@ -129,3 +129,35 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         bcd_kernel.bcd(x[0], torch.zeros(64, 3), torch.zeros(64, 3))
 
+
+
+def _low_rank_stacks(seed: int):
+    """Two `(B, M, 16)` stacks with well separated singular values."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b, m in ((2, 200), (3, 96)):
+        q_l = np.linalg.qr(rng.standard_normal((b, m, 16)))[0]
+        q_r = np.linalg.qr(rng.standard_normal((b, 16, 16)))[0]
+        s = 100.0 * 0.6 ** np.arange(16)
+        out.append((q_l * s) @ q_r.transpose(0, 2, 1))
+    return [x.astype(np.float32) for x in out]
+
+
+@pytest.mark.parametrize("method", ["svd", "randomized"])
+def test_shared_truncated_svd_methods_take_the_shared_eigh(method):
+    stacks = _low_rank_stacks(23)
+    ranks = [5, 3]
+    t_stacks = [torch.from_numpy(x) for x in stacks]
+    got = svd.shared_truncated_svd(t_stacks, ranks, method)
+    gram = svd.shared_truncated_svd(t_stacks, ranks, "gram")
+    for a, b in zip(got, gram):  # bit for bit what "gram" gives
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+    jax_out = jsvd.shared_truncated_svd([jnp.asarray(x) for x in stacks], ranks, method)
+    for (u, s, v), (ju, js, jv) in zip(got, jax_out):
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5)
+        # subspaces: each singular vector equal to JAX's up to its sign
+        for a, b in ((v.numpy(), np.asarray(jv)), (u.numpy(), np.asarray(ju))):
+            cos = np.abs(np.einsum("...nr,...nr->...r", a, b))
+            np.testing.assert_allclose(cos, 1.0, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        svd.shared_truncated_svd(t_stacks, ranks, "jacobi")

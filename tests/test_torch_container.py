@@ -4,10 +4,14 @@ Both packages run the same coder on the same matrix and must give the same
 bytes: "zlib" always, "best" and "deflate" where the JAX package's native
 library loads (without it, the JAX package gives zlib-9 bytes for them).
 The port's "zlib" coder must also equal its own plain pure-Python version.
+Where the native coder has no libdeflate, "deflate" codes with zlib-9 and
+warns once, as the JAX package does without its library.
 """
 
 import numpy as np
 import pytest
+
+import lrf_tpu_torch as lt
 
 from lrf_tpu.models import container as jc
 from lrf_tpu.native import fibercodec as jnative
@@ -99,3 +103,31 @@ def test_framing_and_metadata():
     assert tc.bytes_to_dict(tc.dict_to_bytes(d)) == d
     with pytest.raises(ValueError):
         tc.set_fiber_coder("lz4")
+
+
+def test_deflate_without_libdeflate_falls_back_to_zlib(monkeypatch):
+    # The card's machine has no libdeflate.h: its build is this flavour.
+    import lrf_tpu
+    from torch_images import photos
+
+    monkeypatch.setattr(tnative, "LIB", tnative.NativeLib(("-DLRF_NO_LIBDEFLATE",)))
+    monkeypatch.setattr(tnative, "_WARNED_NO_LIBDEFLATE", False)
+    saved = tc.get_fiber_coder()
+    images = photos(2, 48, 64, seed=9)
+    try:
+        tc.set_fiber_coder("zlib")
+        want = lt.sharded_qmf_encode_batch(images, device="cpu", quality=10)
+        tc.set_fiber_coder("deflate")
+        with pytest.warns(RuntimeWarning, match="libdeflate.h") as seen:
+            got = lt.sharded_qmf_encode_batch(images, device="cpu", quality=10)
+            single = lt.qmf_encode(images[0], device="cpu", quality=10)
+            blob = tc.encode_matrix(images[0, 0], coder="deflate")
+        assert tc.get_fiber_coder() == ("deflate", 6)  # what was asked for
+    finally:
+        tc.set_fiber_coder(*saved)
+    assert len(seen) == 1  # once per process
+    assert tnative.backends() == ("zlib",)
+    assert got == want and single == want[0]
+    assert blob == tc.encode_matrix(images[0, 0], coder="zlib")
+    for stream in got:
+        np.testing.assert_array_equal(np.asarray(lrf_tpu.qmf_decode(stream)), lt.qmf_decode(stream, device="cpu"))

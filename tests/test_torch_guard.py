@@ -31,6 +31,7 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
         "import lrf_tpu_torch.ops.bcd_kernel, lrf_tpu_torch.parallel.encode, lrf_tpu_torch.parallel.decode\n"
         "import lrf_tpu_torch.parallel.mesh, lrf_tpu_torch.parallel.distributed\n"
         "import lrf_tpu_torch.native.fibercodec, lrf_tpu_torch.ops.entropy\n"
+        "import lrf_tpu_torch.utils.eval, lrf_tpu_torch.utils.profiling, lrf_tpu_torch.native.asan_check\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
         "print(bad)\n"

@@ -8,15 +8,23 @@
   per-image `qmf_encode`, and of the JAX package's `make_mesh(data=4,
   patch=2)` streams on its 8 virtual CPU devices; deterministic.
 - The fused kernel is refused under patch sharding.
+- A data mesh dispatches each row from its own host thread, in row order;
+  the patch mesh's streams stay what they were before the cross-shard
+  copies became non-blocking (sha256 digests recorded from that tree).
 
     python -m pytest --noconftest -m cuda tests/test_torch_mesh.py
 """
+
+import hashlib
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 import lrf_tpu_torch as lt
+from lrf_tpu_torch.parallel import decode as tdec
+from lrf_tpu_torch.parallel import encode as tenc
 from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
 from torch_images import photos
 
@@ -70,6 +78,94 @@ def test_data_mesh_equals_one_device(batch, pack, init):
         assert got == [want[:4], want[4:]]
         outs = list(lt.sharded_qmf_decode_batches(got, device=lt.make_mesh(data=2, patch=2, devices=["cpu"] * 4)))
         np.testing.assert_array_equal(np.concatenate(outs), dec)
+
+
+def test_data_mesh_rows_run_on_their_own_threads(batch, monkeypatch):
+    seen = {"encode": [], "decode": []}
+
+    def spy(stage, fn):
+        def wrapped(x, *args, **kwargs):
+            seen[stage].append((threading.current_thread(), x.shape[0], x[0].clone()))
+            return fn(x, *args, **kwargs)
+
+        return wrapped
+
+    want = lt.sharded_qmf_encode_batch(batch, device="cpu", **KW)
+    want_dec = lt.sharded_qmf_decode_batch(want, device="cpu")
+    monkeypatch.setattr(tenc, "rgb_to_ycbcr", spy("encode", tenc.rgb_to_ycbcr))
+    monkeypatch.setattr(tdec, "_reconstruct", spy("decode", tdec._reconstruct))
+    mesh = lt.make_mesh(devices=["cpu"] * 4)
+    assert lt.sharded_qmf_encode_batch(batch, device=mesh, **KW) == want  # row order kept
+    np.testing.assert_array_equal(lt.sharded_qmf_decode_batch(want, device=mesh), want_dec)
+    for stage in ("encode", "decode"):
+        calls = seen[stage]
+        threads = [t for t, _, _ in calls]
+        assert len(seen[stage]) == 4 and len(set(threads)) == 4, stage
+        assert threading.main_thread() not in threads, stage
+        for thread, b, first in calls:  # each thread ran the row its name gives
+            row = int(thread.name.rsplit(" ", 1)[1])
+            assert b == 2, stage
+            if stage == "encode":
+                assert torch.equal(first, torch.from_numpy(batch[2 * row]).to(torch.float32))
+    # a one-row mesh stays on the calling thread
+    seen["encode"].clear()
+    lt.sharded_qmf_encode_batch(batch, device="cpu", **KW)
+    assert [t for t, _, _ in seen["encode"]] == [threading.current_thread()]
+
+
+def test_map_rows_keeps_order_counts_and_raises():
+    # more row threads than cores, with a short switch interval: the row
+    # order holds, the launch counter loses no update, a row's error reaches
+    # the caller after every row has ended
+    import sys
+
+    from lrf_tpu_torch.ops.bcd_kernel import _KernelLib
+
+    mesh = lt.make_mesh(devices=["cpu"] * 16)
+    counter = _KernelLib()
+    ended = []
+
+    def row(part, devices):
+        for _ in range(2000):
+            counter._count("bcd")
+        ended.append(int(part[0]))
+        return int(part[0])
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = mesh.map_rows(row, mesh.split_batch(torch.arange(32)))
+        assert got == list(range(0, 32, 2)) and counter.counts == {"bcd_cluster": 0, "bcd": 16 * 2000}
+
+        def failing(part, devices):
+            if int(part[0]) == 6:
+                raise ValueError("row 3 failed")
+            return row(part, devices)
+
+        ended.clear()
+        with pytest.raises(ValueError, match="row 3 failed"):
+            mesh.map_rows(failing, mesh.split_batch(torch.arange(32)))
+        assert sorted(ended) == [i for i in range(0, 32, 2) if i != 6]
+    finally:
+        sys.setswitchinterval(old)
+
+
+# sha256 over the patch-sharded streams of `batch` at KW, recorded before
+# the cross-shard copies became non-blocking: the sum order is fixed, so on
+# the CPU the bytes must not move.
+PATCH_MESH_DIGESTS = {
+    (4, 2): "e62db7911542d7b84291c0c1d6e78bdbe6828a3f054e0e6f9a744b63fdaefd60",
+    (1, 8): "de7bd230d5509e7622d3346fe8d65b3fce32376a59796573029459c9560de0ec",
+}
+
+
+@pytest.mark.parametrize("data,patch", sorted(PATCH_MESH_DIGESTS))
+def test_patch_mesh_bytes_unchanged(batch, data, patch):
+    streams = lt.sharded_qmf_encode_batch(batch, device=lt.make_mesh(data=data, patch=patch, devices=["cpu"] * 8), **KW)
+    h = hashlib.sha256()
+    for s in streams:
+        h.update(s)
+    assert h.hexdigest() == PATCH_MESH_DIGESTS[(data, patch)]
 
 
 @pytest.fixture(scope="module")

@@ -100,3 +100,39 @@ def test_to_dtype_matches_jax_exactly(dtype):
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
     assert quantize.dtype_range(dtype) == tuple(j_dtype_range(dtype))
+
+
+@pytest.mark.parametrize("r,c,size", [(6, 1, (48, 64)), (3, 3, (64, 96)), (1, 1, (8, 8))])
+def test_patchify_uv_round_trip_matches_jax_exactly(r, c, size):
+    h, w = size[0] // 8, size[1] // 8
+    u = RNG.standard_normal((h * w, r)).astype(np.float32)
+    v = RNG.standard_normal((c * 64, r)).astype(np.float32)
+    maps_t = patch.depatchify_uv(_t(u), _t(v), size, (8, 8))
+    maps_j = jpatch.depatchify_uv(jnp.asarray(u), jnp.asarray(v), size, (8, 8))
+    assert maps_t[0].shape == (r, 1, h, w) and maps_t[1].shape == (r, c, 8, 8)
+    for a, b in zip(maps_t, maps_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    back_t = patch.patchify_uv(*maps_t)
+    back_j = jpatch.patchify_uv(*maps_j)
+    for a, b, want in zip(back_t, back_j, (u, v)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy(), want)
+
+
+def test_reference_aliases_and_exports():
+    import lrf_tpu
+    import lrf_tpu_torch.ops as tops
+
+    assert tops.chroma_downsampling is resample.chroma_downsample
+    assert tops.chroma_upsampling is resample.chroma_upsample
+    img = _image(64, 96)
+    ycc = color.rgb_to_ycbcr(_t(img))
+    down = tops.chroma_downsampling(ycc)
+    for a, b in zip(down, lrf_tpu.chroma_downsampling(jnp.asarray(ycc.numpy()))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0)
+    up_j = lrf_tpu.chroma_upsampling(tuple(jnp.asarray(d.numpy()) for d in down), size=(64, 96))
+    np.testing.assert_allclose(tops.chroma_upsampling(down, size=(64, 96)).numpy(), np.asarray(up_j), atol=ATOL, rtol=0)
+    # every op name the port exports is one the JAX package exports too
+    ported = [n for n in dir(tops) if not n.startswith("_") and callable(getattr(tops, n))]
+    assert "patchify_uv" in ported and "depatchify_uv" in ported
+    assert [n for n in ported if not hasattr(lrf_tpu.ops, n)] == []

@@ -7,6 +7,7 @@
   pure-Python serializer's under "zlib".
 - The pipelined encoder gives the one-shot streams, in order, across image
   sizes, including when a batch overflows the entropy row budget.
+- The batched encoders take the JAX package's argument order.
 - Batched decode takes the packed upload and equals per-image decode; so
   does the pipelined decode; the JAX package decodes the port's streams to
   the port's pixels.
@@ -130,6 +131,18 @@ def test_pipelined_encode_matches_one_shot(batch, pack):
     assert list(lt.sharded_qmf_encode_batches([], device="cpu", **KW)) == []
     with pytest.raises(ValueError):
         next(lt.sharded_qmf_encode_batches(batches, device="cpu", depth=0, **KW))
+
+
+def test_jax_style_positional_arguments(batch):
+    # The JAX package's order: (images, mesh, quality, rank) and
+    # (batches, mesh, quality, rank, depth).
+    want = lt.sharded_qmf_encode_batch(batch, device="cpu", quality=20, num_iters=3)
+    assert lt.sharded_qmf_encode_batch(batch, "cpu", 20, num_iters=3) == want
+    assert lt.sharded_qmf_encode_batch(batch, lt.make_mesh(devices=["cpu"] * 2), 20, None, num_iters=3) == want
+    halves = [batch[:2], batch[2:]]
+    got = list(lt.sharded_qmf_encode_batches(halves, "cpu", 20, None, 1, num_iters=3))
+    assert got == [want[:2], want[2:]]
+    assert got == list(lt.sharded_qmf_encode_batches(halves, device="cpu", quality=20, depth=1, num_iters=3))
 
 
 def test_pipelined_overflow_fallback(batch, monkeypatch):
