@@ -6,26 +6,30 @@
 Phases, each of which raises (exit code != 0) when a check fails:
 
 1. card: the `nvidia-smi` name and power limit line;
-2. build: compile both BCD kernels for sm_90a, one nvcc per source, all
-   started together: `lrf_tpu_torch/csrc/bcd_cluster.cu` (a thread-block
-   cluster per image, X held in shared memory across sweeps; N = 64,
-   R <= 16) and `lrf_tpu_torch/csrc/bcd.cu` (one block per image; every
-   shape, and the only one for wider state);
+2. build: compile the BCD kernels for sm_90a, one nvcc per source, all
+   started together: the cluster kernel of `lrf_tpu_torch/csrc/
+   bcd_cluster.cuh` (a thread-block cluster per image, X held in shared
+   memory across sweeps; N = 64) at R <= 16 from `bcd_cluster.cu` and at
+   17 <= R <= 32 from `bcd_cluster_wide.cu`, and `lrf_tpu_torch/csrc/
+   bcd.cu` (one block per image; every shape, and the only one for
+   N != 64 or R > 32); ptxas registers and spills per source and rank;
 3. each kernel that takes a shape against the plain PyTorch version, both
    on the card: integer values inside the bounds, mean loss within 2e-3,
    more than 85% of factor entries equal, two launches bitwise equal,
    image 0 alone bitwise equal to image 0 in the batch, and the public
    `bcd` equal to the kernel its plan picks. The shapes are the codec's
    with integer X, and the main path's own float Y and merged Cb+Cr stacks
-   with their shared-eigh init. At the three N = 64 regimes both kernels
-   are timed in turns in the same run, beside the plain version's time and
-   the computed bound;
+   with their shared-eigh init; bit-equal to the plain version on integer
+   X at the test shapes. At the N = 64 regimes (bench Y and chroma,
+   CLIC-size Y, the q40 Y stack alone and in a batch of 64) the planned
+   cluster kernel and `bcd.cu` are timed in turns in the same run, beside
+   the plain version's time and the computed bound;
 4. the main path at full width: `sharded_qmf_encode_batch` of 64 RGB
    512x768 images at quality 10, then `sharded_qmf_decode_batch`; the
-   cluster kernel must be launched exactly twice (Y, merged Cb+Cr) and the
-   other not at all, per-image `qmf_decode` must give the batched decode's
-   pixels, and per-image PSNR must be within 0.2 dB of an encode whose BCD
-   is the plain version;
+   R <= 16 cluster kernel must be launched exactly twice (Y, merged Cb+Cr)
+   and the others not at all, per-image `qmf_decode` must give the batched
+   decode's pixels, and per-image PSNR must be within 0.2 dB of an encode
+   whose BCD is the plain version;
 5. per-image round trips of the other codec variants on the card, each
    held against the same encode on the CPU at a small size;
 6. the host tail at the same width: the native fiber coder's build and
@@ -63,14 +67,21 @@ Phases, each of which raises (exit code != 0) when a check fails:
 10. eval: `eval_compression` with `qmf_encode` / `qmf_decode` of 4 bench
    images at quality 10, 25 and 40: bpp, PSNR, SSIM, encode, decode and
    encode device ms; each stack's shape and kernel (q10 and q25 launch
-   only the cluster kernel, q40's Y stack `bcd.cu`); PSNR and SSIM on the
-   card equal to the CPU's within 1e-5; `bcd.cu` timed at the q40 Y stack;
+   only the R <= 16 cluster kernel, q40's Y stack the wide one); PSNR and
+   SSIM on the card equal to the CPU's within 1e-5; the planned kernel
+   timed at every per-image stack, and at the q40 Y stack the wide cluster
+   kernel and `bcd.cu` in turns, each with its share of the median q40
+   encode's device ms; a batched q40 encode of the 64 bench images (one
+   launch of each cluster kernel, per-image PSNR within 0.2 dB of an
+   encode whose BCD is the plain version);
    `device_benchmark` of the bench encode (five runs taken in phase 4
    right after its three timed calls, so both see the same host): its best
    within the spread of those calls (or twice its own deviation) of theirs.
 
-It prints one JSON line of per-kernel numbers (times summed over the two
-main-path shapes), then as its last line
+It prints one JSON line of per-kernel numbers (for the R <= 16 cluster
+kernel and `bcd.cu` summed over the two main-path shapes; for the wide
+cluster kernel at the q40 Y stack, its launches counted over phase 10's q40
+encodes), then as its last line
 `{"ok": true, "device": {...}}`. It needs one CUDA device; without one it
 exits with code 1 and prints no result. It imports neither JAX nor
 `lrf_tpu`. `--phases` runs 1, 2, 4 and the phases named (for example
@@ -100,22 +111,31 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # (B, M, N, R): test shapes, the no-patch shape, RGB patches at quality 50
 # (the regime of the TPU's streaming kernel), bench Y, bench merged chroma,
-# CLIC-size Y (the regime of the TPU's per-image kernel).
+# CLIC-size Y (the regime of the TPU's per-image kernel), the q40 Y stack of
+# a per-image encode and of a batch of 64, and R = 32 (q50) streamed.
 KERNEL_SHAPES = [
     (3, 300, 64, 7),
     (2, 257, 64, 5),
     (1, 64, 64, 1),
     (2, 128, 64, 26),
+    (2, 257, 64, 17),
     (2, 128, 64, 64),
     (1, 512, 768, 51),
     (1, 6144, 192, 96),
     (64, 6144, 64, 6),
     (128, 1536, 64, 3),
     (4, 49152, 64, 13),
+    (1, 6144, 64, 26),
+    (64, 6144, 64, 26),
+    (1, 6144, 64, 32),
 ]
+# Integer-X shapes at which a cluster kernel must equal the plain version
+# bit for bit (every sum an exact integer below 2**24).
+EXACT_SHAPES = [(3, 300, 64, 7), (2, 257, 64, 5), (1, 64, 64, 1), (2, 128, 64, 26), (2, 257, 64, 17)]
 MAIN_SHAPES = [(64, 6144, 64, 6), (128, 1536, 64, 3)]
-# The N = 64 regimes where both kernels are timed in turns.
-TIMED_SHAPES = MAIN_SHAPES + [(4, 49152, 64, 13)]
+Q40_SHAPES = [(1, 6144, 64, 26), (64, 6144, 64, 26)]
+# The N = 64 regimes where the planned cluster kernel and bcd.cu are timed in turns.
+TIMED_SHAPES = MAIN_SHAPES + [(4, 49152, 64, 13)] + Q40_SHAPES
 # What each kernel replaces (the TPU kernels' pallas_call sites).
 REPLACES = "lrf_tpu/ops/bcd_pallas.py:519 (K1, K2), lrf_tpu/ops/bcd_pallas.py:722 (K3)"
 # Phases that --phases can leave out; 1 (card), 2 (build) and 4 (main path) always run.
@@ -155,6 +175,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """Registers and spills that ptxas reported, one line per source: each
+    cluster-kernel rank (R=...) or the one-block kernel."""
+    import re
+
+    out, source, cur, parts = [], None, None, []
+    for line in log.splitlines() + ["== end"]:
+        if line.startswith("== "):
+            if source and parts:
+                out.append(f"{source}: " + "; ".join(parts))
+            source, parts = line[3:].strip(), []
+        elif "Compiling entry function" in line:
+            rank = re.search(r"bcd_cluster_kernelILi(\d+)E", line)
+            cur = f"R={rank.group(1)}" if rank else "kernel"
+        elif cur and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            parts.append(f"{cur} spill {spill.group(1)}/{spill.group(2)} B")
+        elif cur and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            parts[-1] += f", {regs} registers"
+            cur = None
+    return out
+
+
 def bcd_bound_ms(b: int, m: int, n: int, r: int, iters: int) -> tuple[float, str]:
     """Least time for `iters` BCD sweeps: each input read once, each output
     written once, against the f32 flops of the sweeps."""
@@ -180,17 +224,22 @@ def run_variant(bk, x, u0, v0, bounds, variant: str, iters: int = ITERS):
 
 
 def variants_for(bk, n: int, r: int) -> list[str]:
-    """The kernels that take this shape: the one-block kernel always, the
-    cluster kernel at N = 64 with R <= 16."""
-    ok = n == bk.CLUSTER_N and r <= bk.CLUSTER_MAX_RANK
-    return ["bcd_cluster", "bcd"] if ok else ["bcd"]
+    """The kernels that take this shape: the cluster kernel whose ranks hold
+    R at N = 64 (if any), then the one-block kernel, which takes every shape."""
+    return [v for v in (bk.cluster_variant(n, r), "bcd") if v]
 
 
-def check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref) -> dict:
+def only(bk, **want) -> dict:
+    """Launch counts: `want` for the kernels named, 0 for every other."""
+    return {name: want.get(name, 0) for name in bk.KERNEL.counts}
+
+
+def check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref, exact: bool = False) -> dict:
     """Every applicable kernel against `bcd_reference` (`ref`): integer values
     inside the bounds, mean loss within 2e-3, more than 85% of entries
     equal, two launches bitwise equal, image 0 alone equal to image 0 in the
-    batch. The public `bcd` must give the planned kernel's result."""
+    batch; with `exact`, a cluster kernel equal to `ref` bit for bit. The
+    public `bcd` must give the planned kernel's result."""
     b, m, n = x.shape
     r = u0.shape[-1]
     ur, vr = ref
@@ -213,10 +262,12 @@ def check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref) -> dict:
         check(eq_u > 0.85 and eq_v > 0.85, f"{label} {variant}: equal share U {eq_u} V {eq_v}")
         check(torch.equal(uk, uk2) and torch.equal(vk, vk2), f"{label} {variant}: two launches differ")
         check(torch.equal(uk[:1], u1) and torch.equal(vk[:1], v1), f"{label} {variant}: image 0 depends on the batch")
+        if exact and variant != "bcd":
+            check(torch.equal(uk, ur) and torch.equal(vk, vr), f"{label} {variant}: not bit-equal on integer X")
         plan = bk.KERNEL.plan(m, n, r, variant)
         where = (f"cluster {plan.cluster} x {plan.rows_per_cta} rows, "
                  f"{'resident' if plan.resident else f'streamed in {plan.tile}-row tiles'}"
-                 if variant == "bcd_cluster" else
+                 if variant != "bcd" else
                  f"{plan.tile}-row tiles, {'shared' if plan.state_in_smem else 'global'} state")
         print(f"kernel {variant} {label}: ok, loss {loss_k:.6f} vs plain {loss_r:.6f}, equal U {eq_u:.5f} "
               f"V {eq_v:.5f}, max|diff| {err:g}; {where}, {plan.smem_bytes} B smem", flush=True)
@@ -232,18 +283,21 @@ def check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref) -> dict:
 
 
 def time_pair(bk, x, u0, v0, reps_new: int, reps_old: int) -> dict:
-    """The two kernels in turns (new, old, old, new), then the plain version."""
-    t = {"bcd_cluster": [], "bcd": []}
-    for variant in ("bcd_cluster", "bcd", "bcd", "bcd_cluster"):
-        reps = reps_new if variant == "bcd_cluster" else reps_old
+    """The planned cluster kernel and bcd.cu in turns (new, old, old, new)."""
+    b, m, n = x.shape
+    new = bk.KERNEL.plan(m, n, u0.shape[-1]).variant
+    t = {new: [], "bcd": []}
+    for variant in (new, "bcd", "bcd", new):
+        reps = reps_new if variant == new else reps_old
         t[variant].append(cuda_ms(lambda: run_variant(bk, x, u0, v0, BOUNDS, variant), reps))
     return {k: sum(v) / len(v) for k, v in t.items()}
 
 
 def phase_kernel(torch, bk, bcd_mod, seed: int, real_stacks):
-    """Phase 3: both kernels against `bcd_reference` on the card, at the
-    codec's shapes with integer X and at the main path's own float stacks;
-    the same-run timing of both kernels at the three N = 64 regimes."""
+    """Phase 3: every kernel that takes a shape against `bcd_reference` on
+    the card, at the codec's shapes with integer X and at the main path's
+    own float stacks; the same-run timing of the planned cluster kernel and
+    bcd.cu at the N = 64 regimes of TIMED_SHAPES."""
     gen = torch.Generator().manual_seed(seed)
     per_shape = {}
     for shape in KERNEL_SHAPES:
@@ -258,7 +312,7 @@ def phase_kernel(torch, bk, bcd_mod, seed: int, real_stacks):
             check(torch.equal(uz, u0) and torch.equal(vz, v0), f"{shape}: num_iters=0 changed the init")
             ref = bk.bcd_reference(x, u0, v0, num_iters=ITERS, bounds=bounds)
             label = f"{shape}" + ("" if bounds == BOUNDS else f" bounds {bounds}")
-            res = check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref)
+            res = check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref, exact=shape in EXACT_SHAPES)
             if bounds != BOUNDS:
                 continue
             entry = dict(err={k: d["err"] for k, d in res.items()}, ms={})
@@ -355,7 +409,7 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(bk.KERNEL.counts)
-    check(launches == {"bcd_cluster": 2, "bcd": 0},
+    check(launches == only(bk, bcd_cluster=2),
           f"main path launched the kernels {launches} times, expected bcd_cluster twice (Y, Cb+Cr)")
     print(f"main path: kernel launches {launches} in one encode of {b} images (first encode {first_s:.3f} s)")
 
@@ -564,7 +618,7 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
         bk.KERNEL.counts[name] = 0
     pipe_s, got = best_s(lambda: list(lt.sharded_qmf_encode_batches(batches, quality=10, device="cuda")), 1)
     launches = dict(bk.KERNEL.counts)
-    check(launches == {"bcd_cluster": 2 * n, "bcd": 0}, f"pipelined encode launched {launches}")
+    check(launches == only(bk, bcd_cluster=2 * n), f"pipelined encode launched {launches}")
     check(got == one_shot, "pipelined encode differs from the one-shot encodes")
     # steady state: the second half's batches, with the pipeline's fill and drain cancelled out
     print(f"host tail [{label}]: pipelined encode of {n} batches {n * mpix / pipe_s:.3f} Mpix/s "
@@ -630,7 +684,7 @@ def phase_fast_init(torch, lt, bk, seed: int, label: str, exact_streams, exact_d
         bk.KERNEL.counts[name] = 0
     fast = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init="fast")
     launches = dict(bk.KERNEL.counts)
-    check(launches == {"bcd_cluster": 2, "bcd": 0}, f"fast-init encode launched {launches}")
+    check(launches == only(bk, bcd_cluster=2), f"fast-init encode launched {launches}")
     check(lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init="fast") == fast,
           "fast-init encode is not deterministic")
     p_exact = per_image_psnr(images, exact_dec)
@@ -821,7 +875,7 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
         got = lt.sharded_qmf_encode_batch(images, quality=10, device=mesh)
         launches = dict(bk.KERNEL.counts)
         rows = mesh.shape["data"]
-        check(launches == {"bcd_cluster": 2 * rows, "bcd": 0}, f"{mesh}: launches {launches}")
+        check(launches == only(bk, bcd_cluster=2 * rows), f"{mesh}: launches {launches}")
         same = _equal_or_close(images, got, streams, f"data mesh {mesh}")
         t, _ = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device=mesh))
         dec = lt.sharded_qmf_decode_batch(got, device=mesh)
@@ -895,8 +949,9 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
 def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
     """Phase 10: `eval_compression` of 4 bench images at q10, q25 and q40
     on the card, the kernel each stack launched, card metrics against CPU
-    metrics, `bcd.cu` at the q40 Y stack, and `device_benchmark` of the
-    bench encode against phase 4's three calls."""
+    metrics, the planned kernel at every per-image stack (the wide cluster
+    kernel and `bcd.cu` in turns at the q40 Y stack), and `device_benchmark`
+    of the bench encode against phase 4's three calls."""
     from lrf_tpu_torch.ops import bcd as bcd_mod
     from lrf_tpu_torch.ops import color, pad, patch, resample
     from lrf_tpu_torch.utils import metrics as tm
@@ -905,19 +960,25 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
     _, _, h, w = images.shape
     chroma = resample.scaled_size((h, w), (0.5, 0.5))
     ms = [(h // 8) * (w // 8), (chroma[0] // 8) * (chroma[1] // 8), (chroma[0] // 8) * (chroma[1] // 8)]
-    q40_device_ms = []
+    device_ms = {}
+    ranks = {}
+    q40_launches = only(bk)
     for q in (10, 25, 40):
-        ranks = lt.build_sharded_encoder("cuda", (h, w), quality=q)[1]["rank"]
-        plans = [bk.KERNEL.plan(m, 64, r).variant for m, r in zip(ms, ranks)]
+        ranks[q] = lt.build_sharded_encoder("cuda", (h, w), quality=q)[1]["rank"]
+        plans = [bk.KERNEL.plan(m, 64, r).variant for m, r in zip(ms, ranks[q])]
         want = {name: plans.count(name) for name in bk.KERNEL.counts}
-        stacks = ", ".join(f"{c} (1, {m}, 64, {r}) -> {v}" for c, m, r, v in zip(("Y", "Cb", "Cr"), ms, ranks, plans))
+        stacks = ", ".join(f"{c} (1, {m}, 64, {r}) -> {v}"
+                           for c, m, r, v in zip(("Y", "Cb", "Cr"), ms, ranks[q], plans))
         print(f"eval [{label}] q{q}: stacks per image {stacks}", flush=True)
+        device_ms[q] = []
         for i, img in enumerate(images[:4]):
             for name in bk.KERNEL.counts:
                 bk.KERNEL.counts[name] = 0
             out = lt.eval_compression(img, lt.qmf_encode, lt.qmf_decode, reconstruct=True, device="cuda", quality=q)
             counts = dict(bk.KERNEL.counts)
             check(counts == want, f"q{q} image {i}: launches {counts}, expected {want}")
+            if q == 40:
+                q40_launches = {k: q40_launches[k] + counts[k] for k in counts}
             rec = out["reconstructed"]
             cpu = {"PSNR (dB)": float(tm.psnr(torch.from_numpy(img), torch.from_numpy(rec))),
                    "SSIM": float(tm.ssim(torch.from_numpy(img), torch.from_numpy(rec)))}
@@ -925,32 +986,70 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
                 check(abs(out[key] - value) <= 1e-5 * abs(value), f"q{q} image {i}: {key} {out[key]} on the card, "
                       f"{value} on the CPU")
             check(np.isfinite(out["PSNR (dB)"]) and out["PSNR (dB)"] > 15, f"q{q} image {i}: PSNR {out['PSNR (dB)']}")
-            if q == 40:
-                q40_device_ms.append(out["encoding device time (ms)"])
+            device_ms[q].append(out["encoding device time (ms)"])
             print(f"eval [{label}] q{q} image {i}: {out['bit rate (bpp)']:.4f} bpp, PSNR {out['PSNR (dB)']:.4f} dB, "
                   f"SSIM {out['SSIM']:.6f} (CPU {cpu['PSNR (dB)']:.4f} dB, {cpu['SSIM']:.6f}); encode "
                   f"{out['encoding time (ms)']:.2f} ms ({out['encoding device time (ms)']:.3f} ms device), decode "
                   f"{out['decoding time (ms)']:.2f} ms; launches {counts}; {out['platform']}", flush=True)
-    # bcd.cu at the q40 Y stack of image 0, as the per-image encode runs it
-    r40 = lt.build_sharded_encoder("cuda", (h, w), quality=40)[1]["rank"][0]
+    print(f"eval [{label}] q40: launches over the 4 per-image encodes {q40_launches}", flush=True)
+
+    # The batched q40 encode of the 64 bench images: Y (64, 6144, 64, 26) on
+    # the wide cluster kernel, merged Cb+Cr on the R <= 16 one; per-image
+    # PSNR within 0.2 dB of an encode whose BCD is the plain version.
+    m_y = ms[0]
+    want = {name: 0 for name in bk.KERNEL.counts}
+    for m, r in ((m_y, ranks[40][0]), (ms[1], ranks[40][1])):
+        want[bk.KERNEL.plan(m, 64, r).variant] += 1
+    for name in bk.KERNEL.counts:
+        bk.KERNEL.counts[name] = 0
+    streams = lt.sharded_qmf_encode_batch(images, quality=40, device="cuda")
+    batch_launches = dict(bk.KERNEL.counts)
+    check(batch_launches == want, f"batched q40 encode launched {batch_launches}, expected {want}")
+    enc_s, again = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=40, device="cuda"))
+    check(again == streams, "batched q40 encode is not deterministic")
+    plain = lt.sharded_qmf_encode_batch(images, quality=40, device="cuda", backend="torch")
+    p_kernel = per_image_psnr(images, lt.sharded_qmf_decode_batch(streams, device="cuda"))
+    p_plain = per_image_psnr(images, lt.sharded_qmf_decode_batch(plain, device="cuda"))
+    worst = float(np.abs(p_kernel - p_plain).max())
+    check(worst < 0.2, f"batched q40: PSNR differs from the plain-BCD encode by {worst} dB")
+    print(f"eval [{label}] q40 batched encode of {len(images)} images: launches {batch_launches}; "
+          f"{enc_s * 1e3:.2f} ms (best of 3); PSNR mean {p_kernel.mean():.4f} dB, max |dPSNR| against the "
+          f"plain-BCD encode {worst:.6f} dB, {sum(a == c for a, c in zip(streams, plain))}/{len(images)} streams "
+          f"byte-identical", flush=True)
+
+    # The planned kernel at each per-image stack of image 0 (Y, and Cb, whose
+    # shape and rank Cr shares), as `qmf_encode` runs it; at the q40 Y stack
+    # the wide cluster kernel and bcd.cu in turns.
     x = torch.from_numpy(images[:1]).cuda()
-    y = patch.patchify(pad.pad_image(resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))[0], (8, 8)),
-                       (8, 8)).contiguous()
-    u0, v0, _ = bcd_mod.svd_init(y, r40, bounds=BOUNDS)
-    ref = bk.bcd_reference(y, u0, v0, num_iters=ITERS, bounds=BOUNDS)
-    uk, vk = run_variant(bk, y, u0, v0, BOUNDS, "bcd")
-    err = max(float((uk - ref[0]).abs().max()), float((vk - ref[1]).abs().max()))
-    eq = min(float((uk == ref[0]).float().mean()), float((vk == ref[1]).float().mean()))
-    check(eq > 0.85, f"bcd.cu at the q40 Y stack: equal share {eq}")
-    shape = tuple(y.shape) + (r40,)
-    q40 = dict(shape=shape, ms=cuda_ms(lambda: run_variant(bk, y, u0, v0, BOUNDS, "bcd"), 10),
-               plain_ms=cuda_ms(lambda: bk.bcd_reference(y, u0, v0, num_iters=ITERS), 3), err=err, eq=eq)
-    q40["bound_ms"], q40["bound_by"] = bcd_bound_ms(*shape, ITERS)
-    enc_dev = float(np.median(q40_device_ms))
-    print(f"eval [{label}] q40: bcd.cu at the Y stack {shape}: {q40['ms']:.4f} ms (CUDA events, mean of 10), 1 launch "
-          f"per image encode, plain {q40['plain_ms']:.4f} ms, bound {q40['bound_ms']:.6g} ms ({q40['bound_by']}, "
-          f"{100 * q40['bound_ms'] / q40['ms']:.2f}% of it); {100 * q40['ms'] / enc_dev:.1f}% of the median q40 encode's "
-          f"{enc_dev:.3f} device ms; max|diff| {err:g}, equal share {eq:.5f}", flush=True)
+    planes = resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))
+    stacks = [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8)).contiguous() for c in planes[:2]]
+    timed = {}
+    for q in (10, 25, 40):
+        enc_dev = float(np.median(device_ms[q]))
+        for name, y, r in zip(("Y", "Cb"), stacks, ranks[q][:2]):
+            u0, v0, _ = bcd_mod.svd_init(y, r, bounds=BOUNDS)
+            ur, vr = bk.bcd_reference(y, u0, v0, num_iters=ITERS, bounds=BOUNDS)
+            shape = tuple(y.shape) + (r,)
+            planned = bk.KERNEL.plan(*shape[1:]).variant
+            variants = [planned, "bcd"] if q == 40 and name == "Y" else [planned]
+            entry = dict(shape=shape, variant=planned, err={}, eq={})
+            for variant in variants:
+                uk, vk = run_variant(bk, y, u0, v0, BOUNDS, variant)
+                entry["err"][variant] = max(float((uk - ur).abs().max()), float((vk - vr).abs().max()))
+                entry["eq"][variant] = min(float((uk == ur).float().mean()), float((vk == vr).float().mean()))
+                check(entry["eq"][variant] > 0.85, f"{variant} at the q{q} {name} stack: equal share {entry['eq']}")
+            entry["ms"] = (time_pair(bk, y, u0, v0, 20, 10) if len(variants) == 2
+                           else {planned: cuda_ms(lambda: run_variant(bk, y, u0, v0, BOUNDS, planned), 20)})
+            entry["plain_ms"] = cuda_ms(lambda: bk.bcd_reference(y, u0, v0, num_iters=ITERS), 3)
+            entry["bound_ms"], entry["bound_by"] = bcd_bound_ms(*shape, ITERS)
+            timed[(q, name)] = entry
+            times = "; ".join(f"{v} {t:.4f} ms ({100 * entry['bound_ms'] / t:.2f}% of bound, {100 * t / enc_dev:.2f}% "
+                              f"of the median q{q} encode's {enc_dev:.3f} device ms), max|diff| {entry['err'][v]:g}, "
+                              f"equal share {entry['eq'][v]:.5f}" for v, t in entry["ms"].items())
+            print(f"eval [{label}] q{q} {name} stack {shape}, {1 if name == 'Y' else 2} launch(es) per image encode: "
+                  f"{times}; plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.6g} ms "
+                  f"({entry['bound_by']})", flush=True)
+    q40 = dict(timed[(40, "Y")], launches=q40_launches, per_stack=timed)
 
     # device_benchmark of the bench encode (taken in phase 4, right after its
     # three timed calls) against those three calls
@@ -998,9 +1097,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bk.KERNEL.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(bk.SOURCES.values())}, one nvcc each "
-          f"({' '.join(bk.NVCC_FLAGS)})")
-    print("\n".join(line for line in bk.KERNEL.build_log.splitlines()
-                    if line.startswith("==") or "registers" in line or "spill" in line))
+          f"({' '.join(bk.NVCC_FLAGS)}); each nvcc seen done after {bk.KERNEL.build_seconds} s")
+    for line in ptxas_summary(bk.KERNEL.build_log):
+        print(f"build: {line}")
     from lrf_tpu_torch.native import fibercodec as native
 
     t0 = time.perf_counter()
@@ -1042,7 +1141,7 @@ def main() -> int:
         phase_mesh(torch, lt, bk, args.seed, label, main_run["streams"])
         lap(9)
     if 10 in phases:
-        phase_eval(torch, lt, bk, args.seed, label, main_run)
+        q40 = phase_eval(torch, lt, bk, args.seed, label, main_run)
         lap(10)
     if phases != set(OPTIONAL_PHASES):
         print(f"total: {time.perf_counter() - t_start:.1f} s; partial run (phases 1, 2, 4 and {sorted(phases)}): "
@@ -1065,8 +1164,27 @@ def main() -> int:
             "bound_by": per_shape[MAIN_SHAPES[0]]["bound_by"],
             "library_ms": None,
             "shapes": [list(s) for s in MAIN_SHAPES],
+            "path": "phase 4: sharded_qmf_encode_batch, 64 x 512x768 at q10",
             "card": label,
         })
+    # The wide ranks' path: the q40 per-image encodes of phase 10, whose Y stack it runs.
+    entries.insert(1, {
+        "name": "bcd_cluster_wide",
+        "route": "cuda",
+        "source": "lrf_tpu_torch/csrc/bcd_cluster_wide.cu",
+        "template": "lrf_tpu_torch/csrc/bcd_cluster.cuh",
+        "replaces": REPLACES,
+        "launches": q40["launches"]["bcd_cluster_wide"],
+        "max_abs_err": q40["err"]["bcd_cluster_wide"],
+        "ms": q40["ms"]["bcd_cluster_wide"],
+        "plain_ms": q40["plain_ms"],
+        "bound_ms": q40["bound_ms"],
+        "bound_by": q40["bound_by"],
+        "library_ms": None,
+        "shapes": [list(q40["shape"])],
+        "path": "phase 10: qmf_encode of 4 bench images at q40",
+        "card": label,
+    })
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(label)
     print(json.dumps({"kernels": entries}))

@@ -8,11 +8,11 @@
 //   K3  _legacy_bcd_kernel   (launched by _bcd_pallas_legacy, M >= 16384)
 // The three variants exist only for the TPU's VMEM budget and 8-aligned
 // sublane starts; this one kernel covers every shape they covered. Since the
-// cluster kernel of bcd_cluster.cu took over the codec's patch width (N = 64,
-// R <= 16), this kernel runs the wider state: N != 64 or R > 16 (RGB patches
-// at high quality, the no-patch codec), as ops/bcd_kernel.py::launch_plan
-// picks by shape. It stays available at every shape for same-run
-// comparisons.
+// cluster kernel of bcd_cluster.cuh took over the codec's patch width
+// (N = 64, R <= 32: bcd_cluster.cu and bcd_cluster_wide.cu), this kernel
+// runs the rest: N != 64 (RGB patches, the no-patch codec) or R > 32
+// (quality above 50), as ops/bcd_kernel.py::launch_plan picks by shape. It
+// stays available at every shape for same-run comparisons.
 //
 // Function. For image b with X (M, N), U (M, R), V (N, R), each sweep does
 //   B = V^T V;  for every row m of U, with a = X[m, :] V, for r = 0..R-1:
@@ -47,7 +47,7 @@
 // kernel uses one SM per image, re-reads X from device memory every sweep
 // and, once V and the Grams spill to global scratch (N = 192, 768), reads
 // them from there; PERF.md holds its measured times against that bound.
-// Redesigning the wide-state regime is queued (ROADMAP queue 2).
+// Redesigning N = 192 and 768 and R > 32 is queued (ROADMAP queue 2).
 
 #include <cuda_runtime.h>
 #include <math.h>

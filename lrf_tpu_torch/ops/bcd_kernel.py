@@ -5,14 +5,16 @@ kernels K1-K3). `bcd(x, u0, v0, num_iters, bounds)` runs `num_iters`
 projected Gauss-Seidel sweeps (U update, then V update) on `(B, M, N)`
 patch stacks and returns integer-valued float32 `(u, v)`:
 
-- on CUDA tensors it launches one of two kernels, chosen by `launch_plan`
+- on CUDA tensors it launches one of three kernels, chosen by `launch_plan`
   from the shape alone, and counts the launch:
-  - `csrc/bcd_cluster.cu` at the codec's patch width (N = 64, R <= 16): a
-    thread-block cluster per image splits M, each CTA holding its slice of
-    X in shared memory across all sweeps (or streaming it when it does not
-    fit);
-  - `csrc/bcd.cu` for wider state (N != 64 or R > 16): one thread block
-    per image, X streamed through shared memory every sweep;
+  - at the codec's patch width (N = 64, 1 <= R <= 32) the cluster kernel of
+    `csrc/bcd_cluster.cuh`: a thread-block cluster per image splits M, each
+    CTA holding its slice of X in shared memory across all sweeps (or
+    streaming it when it does not fit). Its ranks 1-16 build from
+    `csrc/bcd_cluster.cu` ("bcd_cluster") and 17-32 from
+    `csrc/bcd_cluster_wide.cu` ("bcd_cluster_wide"), in two nvcc processes;
+  - `csrc/bcd.cu` ("bcd") for the other shapes (N != 64 or R > 32): one
+    thread block per image, X streamed through shared memory every sweep;
 - on CPU tensors it runs `bcd_reference`, the plain PyTorch version;
 - anything else raises. There is no fallback from one to the other.
 
@@ -32,6 +34,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -46,16 +49,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The two kernels: name -> source under csrc/.
-SOURCES = {"bcd_cluster": "bcd_cluster.cu", "bcd": "bcd.cu"}
+# The kernels: name -> source under csrc/ (one library, one nvcc each).
+SOURCES = {"bcd_cluster": "bcd_cluster.cu", "bcd_cluster_wide": "bcd_cluster_wide.cu", "bcd": "bcd.cu"}
 
-# Geometry of bcd_cluster.cu (its kN, kThreads, kMaxRank, kMaxCluster) and
-# of bcd.cu (kThreads).
+# Geometry of bcd_cluster.cuh (its kN, kThreads, kMaxCluster, and each
+# source's kMinRank..kMaxRank) and of bcd.cu (kThreads).
 CLUSTER_N = 64
 CLUSTER_THREADS = 256
-CLUSTER_MAX_RANK = 16
+CLUSTER_RANKS = {"bcd_cluster": (1, 16), "bcd_cluster_wide": (17, 32)}
 CLUSTER_MAX = 16
-STREAM_TILE = 256
+# Streamed tiles, largest first: the plan takes the largest that fits (128
+# rows fit at every rank up to 32). At most CLUSTER_THREADS rows, so a
+# thread updates one row of a tile.
+STREAM_TILES = (256, 128)
 BLOCK_THREADS = 512
 
 
@@ -63,7 +69,8 @@ BLOCK_THREADS = 512
 class Plan:
     """How one shape runs.
 
-    `variant` is "bcd_cluster" or "bcd". `cluster` CTAs per image each own
+    `variant` is "bcd_cluster" (N = 64, R <= 16), "bcd_cluster_wide"
+    (N = 64, 17 <= R <= 32) or "bcd". `cluster` CTAs per image each own
     `rows_per_cta` rows of X; `resident` says whether that slice stays in
     shared memory for all sweeps (else it streams through `tile`-row tiles).
     For "bcd" (one block per image, X always streamed), `state_in_smem` says
@@ -85,14 +92,17 @@ def _round4(x: int) -> int:
 
 
 def cluster_smem_bytes(s: int, t: int, r: int, warps: int = CLUSTER_THREADS // 32) -> int:
-    """Bytes of shared memory of one bcd_cluster CTA (its `Layout`): the X
-    tile(s), the U tile(s), V at float4 row stride, V^T V,
-    two partials by sweep parity and warps/2 tree slots (a partial holds
-    X^T U and one U^T U row per lane of a row group)."""
+    """Bytes of shared memory of one cluster-kernel CTA (its `Layout` in
+    bcd_cluster.cuh): the X tile(s), the U tile(s) (rows at stride R, or
+    round4(R) at R > 16), V at float4 row stride, V^T V, two partials by
+    sweep parity and warps/2 tree slots (a partial holds X^T U, then U^T U
+    rows at a stride of 8 or 16 lanes at R <= 16, of R above)."""
     n = CLUSTER_N
     tile, nbuf = (s, 1) if s <= t else (t, 2)
-    ps = _round4(n * r + r * (8 if r <= 8 else 16))  # lane-major partial
-    floats = nbuf * tile * n + _round4(nbuf * tile * r) + n * _round4(r) + _round4(r * r)
+    u_stride = r if r <= 16 else _round4(r)
+    g_stride = 8 if r <= 8 else 16 if r <= 16 else r
+    ps = _round4(n * r + r * g_stride)  # lane-major partial
+    floats = nbuf * tile * n + _round4(nbuf * tile * u_stride) + n * _round4(r) + _round4(r * r)
     return 4 * (floats + 2 * ps + (warps // 2) * ps)
 
 
@@ -117,21 +127,31 @@ def _block_plan(m: int, n: int, r: int, smem_optin: int) -> Plan:
     return Plan("bcd", 1, m, False, t, 4 * t * row, False)
 
 
-def _cluster_plan(m: int, r: int, smem_optin: int) -> Plan:
-    """bcd_cluster.cu: the smallest cluster whose CTAs hold their X slice
-    resident; else the largest cluster, streaming STREAM_TILE-row tiles."""
+def _cluster_plan(variant: str, m: int, r: int, smem_optin: int) -> Plan:
+    """bcd_cluster.cuh: the smallest cluster whose CTAs hold their X slice
+    resident; else the largest cluster, streaming tiles of the largest of
+    STREAM_TILES rows that fits."""
     c = 1
     while c <= CLUSTER_MAX:
         s = -(-m // c)
         smem = cluster_smem_bytes(s, s, r)
         if smem <= smem_optin:
-            return Plan("bcd_cluster", c, s, True, s, smem)
+            return Plan(variant, c, s, True, s, smem)
         c *= 2
     s = -(-m // CLUSTER_MAX)
-    smem = cluster_smem_bytes(s, STREAM_TILE, r)
-    if smem > smem_optin:
-        raise ValueError(f"the bcd_cluster kernel needs {smem} B of shared memory, the device has {smem_optin}")
-    return Plan("bcd_cluster", CLUSTER_MAX, s, False, STREAM_TILE, smem)
+    for t in STREAM_TILES:
+        smem = cluster_smem_bytes(s, t, r)
+        if t < s and smem <= smem_optin:
+            return Plan(variant, CLUSTER_MAX, s, False, t, smem)
+    smem = cluster_smem_bytes(s, STREAM_TILES[-1], r)
+    raise ValueError(f"the {variant} kernel needs {smem} B of shared memory, the device has {smem_optin}")
+
+
+def cluster_variant(n: int, r: int) -> Optional[str]:
+    """The cluster kernel whose ranks hold R at width N, or None."""
+    if n != CLUSTER_N:
+        return None
+    return next((name for name, (lo, hi) in CLUSTER_RANKS.items() if lo <= r <= hi), None)
 
 
 def launch_plan(m: int, n: int, r: int, smem_optin: int, variant: Optional[str] = None) -> Plan:
@@ -140,17 +160,19 @@ def launch_plan(m: int, n: int, r: int, smem_optin: int, variant: Optional[str] 
 
     `smem_optin` is the shared memory a block may opt into. `variant`
     forces one kernel (for same-run comparisons); by default the cluster
-    kernel takes N = 64 with R <= 16 and bcd.cu the rest.
+    kernels take N = 64 with R <= 32 (R <= 16 "bcd_cluster", 17-32
+    "bcd_cluster_wide") and bcd.cu the rest.
     """
     if variant is None:
-        variant = "bcd_cluster" if n == CLUSTER_N and 1 <= r <= CLUSTER_MAX_RANK else "bcd"
+        variant = cluster_variant(n, r) or "bcd"
     if variant == "bcd":
         return _block_plan(m, n, r, smem_optin)
-    if variant != "bcd_cluster":
+    if variant not in CLUSTER_RANKS:
         raise ValueError(f"unknown bcd kernel {variant!r}")
-    if n != CLUSTER_N or not 1 <= r <= CLUSTER_MAX_RANK:
-        raise ValueError(f"the bcd_cluster kernel takes N = {CLUSTER_N} and R <= {CLUSTER_MAX_RANK}; got N={n} R={r}")
-    return _cluster_plan(m, r, smem_optin)
+    lo, hi = CLUSTER_RANKS[variant]
+    if n != CLUSTER_N or not lo <= r <= hi:
+        raise ValueError(f"the {variant} kernel takes N = {CLUSTER_N} and {lo} <= R <= {hi}; got N={n} R={r}")
+    return _cluster_plan(variant, m, r, smem_optin)
 
 
 def _find_nvcc() -> str:
@@ -180,13 +202,14 @@ class _KernelLib:
         self.defines = tuple(defines)  # extra nvcc flags, e.g. a profiling build's -D
         self.counts = {name: 0 for name in SOURCES}
         self.build_log = ""
+        self.build_seconds = {}  # source -> seconds from the build's start until its nvcc was seen done
         self._lib = None  # name -> ctypes.CDLL, once loaded
         self._smem_optin = 0
         self._lock = threading.Lock()
 
     @property
     def launches(self) -> int:
-        """Launches of both kernels together."""
+        """Launches of all kernels together."""
         return sum(self.counts.values())
 
     def digest(self) -> str:
@@ -209,6 +232,7 @@ class _KernelLib:
             return paths
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _find_nvcc()
+        t0 = time.perf_counter()
         procs = {}
         for name, path in todo.items():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -218,6 +242,7 @@ class _KernelLib:
         logs, failed = [], []
         for name, (proc, tmp) in procs.items():
             out, _ = proc.communicate()
+            self.build_seconds[SOURCES[name]] = round(time.perf_counter() - t0, 2)
             logs.append(f"== {SOURCES[name]}\n{out}")
             if proc.returncode != 0:
                 failed.append(f"{SOURCES[name]} ({proc.returncode})")
@@ -234,25 +259,35 @@ class _KernelLib:
             if self._lib is None:
                 paths = self.build()
                 libs = {name: ctypes.CDLL(str(p)) for name, p in paths.items()}
-                block, cluster = libs["bcd"], libs["bcd_cluster"]
+                block = libs["bcd"]
                 _bind(block, "lrf_bcd_launch", _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _Z, _P)
                 _bind(block, "lrf_bcd_threads", _I)
                 _bind(block, "lrf_bcd_smem_optin", _I, ctypes.POINTER(_I))
                 _bind(block, "lrf_cuda_error_string", ctypes.c_char_p, _I)
-                _bind(cluster, "lrf_bcdc_launch", _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _Z, _P)
-                _bind(cluster, "lrf_bcdc_threads", _I)
-                _bind(cluster, "lrf_bcdc_max_rank", _I)
-                _bind(cluster, "lrf_bcdc_max_cluster", _I)
-                _bind(cluster, "lrf_bcdc_max_active_clusters", _I, _I, _I, _Z, ctypes.POINTER(_I))
-                _bind(cluster, "lrf_cuda_error_string", ctypes.c_char_p, _I)
-                geometry = (
-                    (block.lrf_bcd_threads(), BLOCK_THREADS),
-                    (cluster.lrf_bcdc_threads(), CLUSTER_THREADS),
-                    (cluster.lrf_bcdc_max_rank(), CLUSTER_MAX_RANK),
-                    (cluster.lrf_bcdc_max_cluster(), CLUSTER_MAX),
-                )
-                if any(got != want for got, want in geometry):
-                    raise RuntimeError(f"kernel geometry {geometry} does not match bcd_kernel.py")
+                geometry = [(block.lrf_bcd_threads(), BLOCK_THREADS)]
+                for name, ranks in CLUSTER_RANKS.items():
+                    cluster = libs[name]
+                    _bind(cluster, "lrf_bcdc_launch", _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _Z, _P)
+                    _bind(cluster, "lrf_bcdc_threads", _I)
+                    _bind(cluster, "lrf_bcdc_min_rank", _I)
+                    _bind(cluster, "lrf_bcdc_max_rank", _I)
+                    _bind(cluster, "lrf_bcdc_max_cluster", _I)
+                    _bind(cluster, "lrf_bcdc_smem_bytes", ctypes.c_longlong, _I, _I, _I)
+                    _bind(cluster, "lrf_bcdc_max_active_clusters", _I, _I, _I, _Z, ctypes.POINTER(_I))
+                    _bind(cluster, "lrf_cuda_error_string", ctypes.c_char_p, _I)
+                    geometry += [
+                        (cluster.lrf_bcdc_threads(), CLUSTER_THREADS),
+                        ((cluster.lrf_bcdc_min_rank(), cluster.lrf_bcdc_max_rank()), ranks),
+                        (cluster.lrf_bcdc_max_cluster(), CLUSTER_MAX),
+                    ]
+                    # cluster_smem_bytes against the kernel's own Layout, resident and streamed
+                    geometry += [
+                        (cluster.lrf_bcdc_smem_bytes(s, t, r), cluster_smem_bytes(s, t, r))
+                        for r in range(ranks[0], ranks[1] + 1) for s, t in ((384, 384), (3072, 128), (6250, 256))
+                    ]
+                wrong = [(got, want) for got, want in geometry if got != want]
+                if wrong:
+                    raise RuntimeError(f"kernel geometry (got, want) {wrong} does not match bcd_kernel.py")
                 optin = ctypes.c_int(0)
                 self._check(block, block.lrf_bcd_smem_optin(ctypes.byref(optin)), "smem query")
                 self._smem_optin = optin.value
@@ -270,8 +305,8 @@ class _KernelLib:
         return launch_plan(m, n, r, self._smem_optin, variant)
 
     def max_active_clusters(self, plan: Plan, r: int) -> int:
-        """Clusters of `plan` that the device runs at once (bcd_cluster only)."""
-        lib = self.lib()["bcd_cluster"]
+        """Clusters of `plan` that the device runs at once (cluster kernels only)."""
+        lib = self.lib()[plan.variant]
         out = ctypes.c_int(0)
         self._check(lib, lib.lrf_bcdc_max_active_clusters(r, plan.cluster, plan.smem_bytes, ctypes.byref(out)),
                     "occupancy query")
@@ -284,8 +319,8 @@ class _KernelLib:
         r = u.shape[-1]
         plan = launch_plan(m, n, r, self._smem_optin, variant)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan.variant == "bcd_cluster":
-            lib = libs["bcd_cluster"]
+        if plan.variant in CLUSTER_RANKS:
+            lib = libs[plan.variant]
             if x.data_ptr() % 16:
                 x = x.clone()  # cp.async copies 16-byte chunks
             err = lib.lrf_bcdc_launch(

@@ -3,7 +3,8 @@
 
     python3 -m lrf_tpu_torch.tools.bcd_kernel_phases [--out PATH]
 
-At the three N = 64 codec shapes it runs `csrc/bcd_cluster.cu` twice over:
+At the N = 64 codec shapes it runs the cluster kernel (`csrc/bcd_cluster.cu`
+at the bench's ranks, `csrc/bcd_cluster_wide.cu` at the q40 Y stack) twice over:
 as the port builds it, and built again with `-DLRF_BCDC_PROFILE`, in which
 thread 0 of every CTA sums the clock64 cycles of each phase of the sweep
 loop. It prints both builds' times (CUDA events, 10 sweeps, the factor
@@ -15,9 +16,9 @@ launch through `bcd_kernel._KernelLib`. Writes the numbers as JSON to `--out`
 
 The process's first cluster-kernel launches are one launch of the port's
 build per shape, in `SHAPES` order, so a profiler that reads the first
-three launches of `bcd_cluster_kernel` reads exactly those:
+five launches of `bcd_cluster_kernel` reads exactly those:
 
-    ncu --kernel-name regex:bcd_cluster_kernel --launch-count 3 \\
+    ncu --kernel-name regex:bcd_cluster_kernel --launch-count 5 \\
         --section SpeedOfLight --section WarpStateStats \\
         python3 -m lrf_tpu_torch.tools.bcd_kernel_phases
 
@@ -34,14 +35,14 @@ import subprocess
 import sys
 import time
 
-SHAPES = [(64, 6144, 64, 6), (128, 1536, 64, 3), (4, 49152, 64, 13)]
+SHAPES = [(64, 6144, 64, 6), (128, 1536, 64, 3), (4, 49152, 64, 13), (1, 6144, 64, 26), (64, 6144, 64, 26)]
 PHASES = ["load", "step 1", "step 2", "warp tree", "cluster barrier", "cluster sum", "V update"]
 ITERS = 10
 BOUNDS = (-16, 15)
 REPS = 5
 
 
-def ptxas_summary(log: str, ranks=(3, 6, 13)) -> list[str]:
+def ptxas_summary(log: str, ranks=(3, 6, 13, 26)) -> list[str]:
     """Registers and spills of the kernel instances at `ranks`, from `-Xptxas -v`."""
     out, current = [], None
     for line in log.splitlines():
@@ -70,8 +71,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     prof = bk._KernelLib(defines=("-DLRF_BCDC_PROFILE",))
-    lib = prof.lib()["bcd_cluster"]
-    bk._bind(lib, "lrf_bcdc_phase_cycles", ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong))
+    libs = prof.lib()
+    for name in bk.CLUSTER_RANKS:
+        bk._bind(libs[name], "lrf_bcdc_phase_cycles", ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong))
     bk.KERNEL.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s; profiled build: "
           + "; ".join(ptxas_summary(prof.build_log)), flush=True)
@@ -104,6 +106,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             out[id(kernel)] = (u.clone(), v.clone())
         same_bits = all(torch.equal(a, c) for a, c in zip(out[id(bk.KERNEL)], out[id(prof)]))
+        lib = libs[bk.KERNEL.plan(*shape[1:]).variant]
         cyc = (ctypes.c_ulonglong * (len(PHASES) + 1))()
         err = lib.lrf_bcdc_phase_cycles(cyc)  # reset
         run(prof)

@@ -20,9 +20,11 @@ from lrf_tpu_torch.ops import bcd, bcd_kernel
 RNG = np.random.default_rng(23)
 # The shared memory an H100 block may opt into.
 H100_SMEM = 232448
-SHAPES = [(3, 300, 64, 7), (2, 257, 64, 5), (1, 64, 64, 1), (2, 128, 64, 26), (2, 128, 64, 64)]
-# Float YCbCr-like X at a resident cluster (C = 2) and a streamed one (16 CTAs).
-FLOAT_X_SHAPES = [(3, 1000, 64, 6), (2, 20000, 64, 4)]
+SHAPES = [(3, 300, 64, 7), (2, 257, 64, 5), (1, 64, 64, 1), (2, 128, 64, 26), (2, 128, 64, 64),
+          (2, 257, 64, 17), (2, 128, 64, 32)]
+# Float YCbCr-like X at a resident cluster (C = 2), a streamed one (16 CTAs)
+# and the q40 Y stack of a per-image encode (16 CTAs, wide ranks, resident).
+FLOAT_X_SHAPES = [(3, 1000, 64, 6), (2, 20000, 64, 4), (1, 6144, 64, 26)]
 
 
 @pytest.mark.parametrize(
@@ -34,8 +36,13 @@ FLOAT_X_SHAPES = [(3, 1000, 64, 6), (2, 20000, 64, 4)]
         # CLIC-size Y: the largest cluster, X streamed in 256-row tiles
         (49152, 64, 13, ("bcd_cluster", 16, 3072, False, 256, 187440)),
         (300, 64, 7, ("bcd_cluster", 1, 300, True, 300, 99552)),
-        # rank above the cluster kernel's 16: one block per image, state in shared memory
-        (128, 64, 26, ("bcd", 1, 128, False, 128, 65824)),
+        # ranks 17-32 at N = 64: the wide cluster kernel; the q40 Y stack
+        # resident in 16 CTAs, R = 32 streamed in 128-row tiles
+        (128, 64, 26, ("bcd_cluster_wide", 1, 128, True, 128, 113136)),
+        (6144, 64, 26, ("bcd_cluster_wide", 16, 384, True, 384, 207344)),
+        (6144, 64, 32, ("bcd_cluster_wide", 16, 384, False, 128, 184320)),
+        # rank above the cluster kernels' 32: one block per image, state in shared memory
+        (6144, 64, 33, ("bcd", 1, 6144, False, 512, 226312)),
         # no-patch and RGB-patch widths: one block per image, state in global scratch
         (512, 768, 51, ("bcd", 1, 512, False, 70, 229600)),
         (6144, 192, 96, ("bcd", 1, 6144, False, 200, 232000)),
@@ -58,28 +65,52 @@ def test_launch_plan_short_stacks_keep_state_in_shared_memory(m):
     assert old.tile == m and old.state_in_smem and old.smem_bytes <= H100_SMEM
 
 
-@pytest.mark.parametrize("m,r", [(6144, 6), (1536, 3), (49152, 13), (6144, 16), (100000, 16)])
+@pytest.mark.parametrize(
+    "m,r",
+    [(6144, 6), (1536, 3), (49152, 13), (6144, 16), (100000, 16), (6144, 26)]
+    + [(m, r) for r in (17, 32) for m in (1, 33, 384, 6144, 49152, 100000)],
+)
 def test_cluster_plan_covers_m_and_fits(m, r):
-    # The smallest cluster that keeps X resident, else 16 CTAs streaming;
-    # the bytes are the kernel's Layout.
+    # The smallest cluster that keeps X resident, else 16 CTAs streaming
+    # the largest tile that fits; the bytes are the kernel's Layout.
     plan = bcd_kernel.launch_plan(m, 64, r, H100_SMEM)
-    assert plan.variant == "bcd_cluster" and plan.smem_bytes <= H100_SMEM
+    assert plan.variant == ("bcd_cluster" if r <= 16 else "bcd_cluster_wide") and plan.smem_bytes <= H100_SMEM
     assert plan.smem_bytes == bcd_kernel.cluster_smem_bytes(plan.rows_per_cta, plan.tile, r)
+    assert plan.cluster * plan.rows_per_cta >= m > (plan.cluster - 1) * plan.rows_per_cta
     if plan.resident:
         assert plan.tile == plan.rows_per_cta
         if plan.cluster > 1:
             half = -(-m // (plan.cluster // 2))
             assert bcd_kernel.cluster_smem_bytes(half, half, r) > H100_SMEM
     else:
-        assert plan.cluster == bcd_kernel.CLUSTER_MAX and plan.tile == bcd_kernel.STREAM_TILE
+        assert plan.cluster == bcd_kernel.CLUSTER_MAX
+        assert bcd_kernel.cluster_smem_bytes(plan.rows_per_cta, plan.rows_per_cta, r) > H100_SMEM
+        fits = [t for t in bcd_kernel.STREAM_TILES
+                if t < plan.rows_per_cta and bcd_kernel.cluster_smem_bytes(plan.rows_per_cta, t, r) <= H100_SMEM]
+        assert plan.tile == fits[0] <= bcd_kernel.CLUSTER_THREADS
 
 
 def test_launch_plan_forced_variants():
     assert bcd_kernel.launch_plan(6144, 64, 6, H100_SMEM, variant="bcd").variant == "bcd"
+    assert bcd_kernel.launch_plan(6144, 64, 26, H100_SMEM, variant="bcd").variant == "bcd"
     with pytest.raises(ValueError, match="N = 64"):
         bcd_kernel.launch_plan(512, 768, 51, H100_SMEM, variant="bcd_cluster")
+    for variant, r in (("bcd_cluster", 33), ("bcd_cluster", 17), ("bcd_cluster_wide", 16), ("bcd_cluster_wide", 33)):
+        with pytest.raises(ValueError, match="<= R <="):
+            bcd_kernel.launch_plan(6144, 64, r, H100_SMEM, variant=variant)
     with pytest.raises(ValueError, match="unknown"):
         bcd_kernel.launch_plan(64, 64, 1, H100_SMEM, variant="nope")
+
+
+@pytest.mark.parametrize(
+    "n,r,want",
+    [(64, 1, "bcd_cluster"), (64, 16, "bcd_cluster"), (64, 17, "bcd_cluster_wide"), (64, 32, "bcd_cluster_wide"),
+     (64, 33, "bcd"), (64, 64, "bcd"), (192, 8, "bcd"), (192, 17, "bcd"), (768, 26, "bcd")],
+)
+def test_launch_plan_routes_by_width_and_rank(n, r, want):
+    # N = 64 with R <= 32 takes a cluster kernel; every other shape bcd.cu
+    assert bcd_kernel.launch_plan(384, n, r, H100_SMEM).variant == want
+    assert bcd_kernel.cluster_variant(n, r) == (None if want == "bcd" else want)
 
 
 def test_launch_plan_rejects_rows_wider_than_shared_memory():
@@ -148,9 +179,10 @@ def _stack(kind, b, m, n):
     return torch.from_numpy(np.clip(base, 16.0, 235.0).astype(np.float32))
 
 
-def _matches_plain(x, r):
+def _matches_plain(x, r, exact=False):
     # Tolerance of tests/test_bcd_pallas.py: mean loss within 2e-3 and more
     # than 85% of entries equal (sums run in another order; round() ties flip).
+    # `exact`: the factors must be equal (integer X, every sum an exact integer).
     b, m, n = x.shape
     u0, v0, _ = bcd.svd_init(x, r, bounds=(-16, 15))
     plan = bcd_kernel.KERNEL.plan(m, n, r)
@@ -163,6 +195,8 @@ def _matches_plain(x, r):
     loss_r = float(bcd.qmf_loss(x, ur, vr).mean())
     assert abs(loss_k - loss_r) < 2e-3
     assert float((uk == ur).float().mean()) > 0.85 and float((vk == vr).float().mean()) > 0.85
+    if exact:
+        assert torch.equal(uk, ur) and torch.equal(vk, vr)
     for f in (uk, vk):
         assert torch.all(f == torch.round(f)) and f.min() >= -16 and f.max() <= 15
     u1, v1 = bcd_kernel.bcd(x[:1].contiguous(), u0[:1], v0[:1], num_iters=4)
@@ -174,8 +208,22 @@ def _matches_plain(x, r):
 @pytest.mark.parametrize("b,m,n,r", SHAPES + [(2, 1, 64, 1), (1, 5, 64, 8), (1, 512, 768, 51)] + FLOAT_X_SHAPES)
 def test_kernel_matches_plain_on_gpu(b, m, n, r):
     _cuda()
-    x = _stack("float" if (b, m, n, r) in FLOAT_X_SHAPES else "int", b, m, n).cuda()
-    _matches_plain(x, r)
+    kind = "float" if (b, m, n, r) in FLOAT_X_SHAPES else "int"
+    x = _stack(kind, b, m, n).cuda()
+    # bit-equal on integer X where a cluster kernel runs (bcd.cu's sums pass 2**24 at R = 64)
+    _matches_plain(x, r, exact=kind == "int" and bcd_kernel.cluster_variant(n, r) is not None)
+
+
+@pytest.mark.cuda
+def test_cluster_layout_matches_plan_bytes_on_gpu():
+    # cluster_smem_bytes is the kernels' Layout at every rank, resident and streamed
+    _cuda()
+    libs = bcd_kernel.KERNEL.lib()
+    for name, (lo, hi) in bcd_kernel.CLUSTER_RANKS.items():
+        for r in range(lo, hi + 1):
+            for s, t in ((1, 1), (33, 33), (384, 384), (384, 128), (3072, 256), (6250, 64)):
+                got = libs[name].lrf_bcdc_smem_bytes(s, t, r)
+                assert got == bcd_kernel.cluster_smem_bytes(s, t, r), (name, s, t, r)
 
 
 @pytest.mark.cuda

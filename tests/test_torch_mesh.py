@@ -135,7 +135,8 @@ def test_map_rows_keeps_order_counts_and_raises():
     sys.setswitchinterval(1e-6)
     try:
         got = mesh.map_rows(row, mesh.split_batch(torch.arange(32)))
-        assert got == list(range(0, 32, 2)) and counter.counts == {"bcd_cluster": 0, "bcd": 16 * 2000}
+        assert got == list(range(0, 32, 2))
+        assert counter.counts == {"bcd_cluster": 0, "bcd_cluster_wide": 0, "bcd": 16 * 2000}
 
         def failing(part, devices):
             if int(part[0]) == 6:

@@ -46,7 +46,8 @@ def _metadata(stream):
 
 
 @pytest.mark.parametrize("size", [(128, 192), (61, 93)])
-@pytest.mark.parametrize("quality", [10, 20])
+# q40: Y stacks (1, 384, 64, 26) and (1, 96, 64, 26), the wide-rank regime
+@pytest.mark.parametrize("quality", [10, 20, 40])
 def test_cross_decode_and_rd(photo, size, quality):
     crop = _crop(photo, *size)
     s_jax = lrf_tpu.qmf_encode(crop, quality=quality)
