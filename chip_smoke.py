@@ -10,9 +10,10 @@ Phases, each of which raises (exit code != 0) when a check fails:
    started together: the cluster kernel of `lrf_tpu_torch/csrc/
    bcd_cluster.cuh` (a thread-block cluster per image, X held in shared
    memory across sweeps; N = 64) at R <= 16 from `bcd_cluster.cu` and at
-   17 <= R <= 32 from `bcd_cluster_wide.cu`, and `lrf_tpu_torch/csrc/
-   bcd.cu` (one block per image; every shape, and the only one for
-   N != 64 or R > 32); ptxas registers and spills per source and rank;
+   17 <= R <= 32 from `bcd_cluster_wide.cu`, `lrf_tpu_torch/csrc/
+   bcd_grid.cu` (one image over a grid of CTAs; N != 64 or R > 32) and
+   `lrf_tpu_torch/csrc/bcd.cu` (one block per image; forced only, the
+   yardstick); ptxas registers and spills per source, rank and kernel;
 3. each kernel that takes a shape against the plain PyTorch version, both
    on the card: integer values inside the bounds, mean loss within 2e-3,
    more than 85% of factor entries equal, two launches bitwise equal,
@@ -20,10 +21,14 @@ Phases, each of which raises (exit code != 0) when a check fails:
    `bcd` equal to the kernel its plan picks. The shapes are the codec's
    with integer X, and the main path's own float Y and merged Cb+Cr stacks
    with their shared-eigh init; bit-equal to the plain version on integer
-   X at the test shapes. At the N = 64 regimes (bench Y and chroma,
-   CLIC-size Y, the q40 Y stack alone and in a batch of 64) the planned
-   cluster kernel and `bcd.cu` are timed in turns in the same run, beside
-   the plain version's time and the computed bound;
+   X at the test shapes (a cluster kernel), and, from the init projected
+   to integers, for every planned kernel wherever every sum of the sweeps,
+   as `bcd_kernel.gs_sum_bound` reckons it, stays below 2^24. At the N = 64
+   cluster regimes (bench Y and chroma, CLIC-size Y, the q40 Y stack alone
+   and in a batch of 64) the planned cluster kernel and `bcd.cu` are timed
+   in turns; at every `bcd_grid` shape (q75 and q100 Y, RGB patches, the
+   no-patch codec) `bcd_grid`, `bcd.cu` (where one run takes under about a
+   second) and the plain version in turns; each beside the computed bound;
 4. the main path at full width: `sharded_qmf_encode_batch` of 64 RGB
    512x768 images at quality 10, then `sharded_qmf_decode_batch`; the
    R <= 16 cluster kernel must be launched exactly twice (Y, merged Cb+Cr)
@@ -31,7 +36,9 @@ Phases, each of which raises (exit code != 0) when a check fails:
    decode's pixels, and per-image PSNR must be within 0.2 dB of an encode
    whose BCD is the plain version;
 5. per-image round trips of the other codec variants on the card, each
-   held against the same encode on the CPU at a small size;
+   held against the same encode on the CPU at a small size; each 512x768
+   encode launches `bcd_grid` once (RGB patches, RGB no-patch) or three
+   times (YCbCr no-patch: Y, Cb, Cr) and no other kernel;
 6. the host tail at the same width: the native fiber coder's build and
    backends; one encode with each transport (raw factors, the flat pack,
    the entropy pack), whose streams must be byte-identical, with each
@@ -65,15 +72,16 @@ Phases, each of which raises (exit code != 0) when a check fails:
    both processes on the card) of 16 images: streams in order, equal to
    one process's encodes of the same shards;
 10. eval: `eval_compression` with `qmf_encode` / `qmf_decode` of 4 bench
-   images at quality 10, 25 and 40: bpp, PSNR, SSIM, encode, decode and
-   encode device ms; each stack's shape and kernel (q10 and q25 launch
-   only the R <= 16 cluster kernel, q40's Y stack the wide one); PSNR and
-   SSIM on the card equal to the CPU's within 1e-5; the planned kernel
-   timed at every per-image stack, and at the q40 Y stack the wide cluster
-   kernel and `bcd.cu` in turns, each with its share of the median q40
-   encode's device ms; a batched q40 encode of the 64 bench images (one
-   launch of each cluster kernel, per-image PSNR within 0.2 dB of an
-   encode whose BCD is the plain version);
+   images at quality 10, 25, 40 and 75: bpp, PSNR, SSIM, encode, decode
+   and encode device ms; each stack's shape and kernel (q10 and q25 launch
+   only the R <= 16 cluster kernel, q40's Y stack the wide one, q75's Y
+   stack `bcd_grid` and its Cb and Cr the wide one); PSNR and SSIM on the
+   card equal to the CPU's within 1e-5; the planned kernel timed at every
+   per-image stack, and at the q40 and q75 Y stacks the planned kernel and
+   `bcd.cu` in turns, each with its share of the median encode's device
+   ms; batched q40 and q75 encodes of the 64 bench images (one launch of
+   each planned kernel, per-image PSNR within 0.2 dB of an encode whose BCD
+   is the plain version);
    `device_benchmark` of the bench encode (five runs taken in phase 4
    right after its three timed calls, so both see the same host): its best
    within the spread of those calls (or twice its own deviation) of theirs.
@@ -81,7 +89,8 @@ Phases, each of which raises (exit code != 0) when a check fails:
 It prints one JSON line of per-kernel numbers (for the R <= 16 cluster
 kernel and `bcd.cu` summed over the two main-path shapes; for the wide
 cluster kernel at the q40 Y stack, its launches counted over phase 10's q40
-encodes), then as its last line
+encodes; for `bcd_grid` at the q75 Y stack, its launches counted over phase
+10's q75 encodes), then as its last line
 `{"ok": true, "device": {...}}`. It needs one CUDA device; without one it
 exits with code 1 and prints no result. It imports neither JAX nor
 `lrf_tpu`. `--phases` runs 1, 2, 4 and the phases named (for example
@@ -112,7 +121,10 @@ PEAK_F32_FLOPS = 67e12
 # (B, M, N, R): test shapes, the no-patch shape, RGB patches at quality 50
 # (the regime of the TPU's streaming kernel), bench Y, bench merged chroma,
 # CLIC-size Y (the regime of the TPU's per-image kernel), the q40 Y stack of
-# a per-image encode and of a batch of 64, and R = 32 (q50) streamed.
+# a per-image encode and of a batch of 64, R = 32 (q50) streamed; then the
+# bcd_grid regimes: the q75 and q100 Y stacks per image, q75 Y in a batch of
+# 64, RGB patches at q10, RGB no-patch at q10, no-patch Cb/Cr at q10, and
+# the no-patch codec at q50 (V^T V off shared memory).
 KERNEL_SHAPES = [
     (3, 300, 64, 7),
     (2, 257, 64, 5),
@@ -128,6 +140,13 @@ KERNEL_SHAPES = [
     (1, 6144, 64, 26),
     (64, 6144, 64, 26),
     (1, 6144, 64, 32),
+    (1, 6144, 64, 48),
+    (1, 6144, 64, 64),
+    (64, 6144, 64, 48),
+    (1, 6144, 192, 19),
+    (3, 512, 768, 51),
+    (1, 256, 384, 13),
+    (1, 512, 768, 256),
 ]
 # Integer-X shapes at which a cluster kernel must equal the plain version
 # bit for bit (every sum an exact integer below 2**24).
@@ -136,6 +155,8 @@ MAIN_SHAPES = [(64, 6144, 64, 6), (128, 1536, 64, 3)]
 Q40_SHAPES = [(1, 6144, 64, 26), (64, 6144, 64, 26)]
 # The N = 64 regimes where the planned cluster kernel and bcd.cu are timed in turns.
 TIMED_SHAPES = MAIN_SHAPES + [(4, 49152, 64, 13)] + Q40_SHAPES
+# bcd.cu is timed only where one run takes under about this many ms.
+BCD_TIMED_MS = 1000.0
 # What each kernel replaces (the TPU kernels' pallas_call sites).
 REPLACES = "lrf_tpu/ops/bcd_pallas.py:519 (K1, K2), lrf_tpu/ops/bcd_pallas.py:722 (K3)"
 # Phases that --phases can leave out; 1 (card), 2 (build) and 4 (main path) always run.
@@ -177,7 +198,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def ptxas_summary(log: str) -> list[str]:
     """Registers and spills that ptxas reported, one line per source: each
-    cluster-kernel rank (R=...) or the one-block kernel."""
+    cluster-kernel rank (R=...), each kernel of bcd_grid.cu, or the
+    one-block kernel."""
     import re
 
     out, source, cur, parts = [], None, None, []
@@ -188,7 +210,8 @@ def ptxas_summary(log: str) -> list[str]:
             source, parts = line[3:].strip(), []
         elif "Compiling entry function" in line:
             rank = re.search(r"bcd_cluster_kernelILi(\d+)E", line)
-            cur = f"R={rank.group(1)}" if rank else "kernel"
+            name = re.search(r"\d([a-z_]+_kernel)E", line)
+            cur = f"R={rank.group(1)}" if rank else name.group(1) if name else "kernel"
         elif cur and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             parts.append(f"{cur} spill {spill.group(1)}/{spill.group(2)} B")
@@ -224,9 +247,10 @@ def run_variant(bk, x, u0, v0, bounds, variant: str, iters: int = ITERS):
 
 
 def variants_for(bk, n: int, r: int) -> list[str]:
-    """The kernels that take this shape: the cluster kernel whose ranks hold
-    R at N = 64 (if any), then the one-block kernel, which takes every shape."""
-    return [v for v in (bk.cluster_variant(n, r), "bcd") if v]
+    """The kernels that take this shape: the planned one (the cluster kernel
+    whose ranks hold R at N = 64, else bcd_grid), then the one-block kernel,
+    which takes every shape when forced."""
+    return [bk.cluster_variant(n, r) or "bcd_grid", "bcd"]
 
 
 def only(bk, **want) -> dict:
@@ -265,10 +289,15 @@ def check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref, exact: boo
         if exact and variant != "bcd":
             check(torch.equal(uk, ur) and torch.equal(vk, vr), f"{label} {variant}: not bit-equal on integer X")
         plan = bk.KERNEL.plan(m, n, r, variant)
-        where = (f"cluster {plan.cluster} x {plan.rows_per_cta} rows, "
-                 f"{'resident' if plan.resident else f'streamed in {plan.tile}-row tiles'}"
-                 if variant != "bcd" else
-                 f"{plan.tile}-row tiles, {'shared' if plan.state_in_smem else 'global'} state")
+        if variant == "bcd":
+            where = f"{plan.tile}-row tiles, {'shared' if plan.state_in_smem else 'global'} state"
+        elif variant == "bcd_grid":
+            where = (f"{plan.cluster} CTAs of {plan.tile} rows per image, V^T V in "
+                     f"{'shared memory' if plan.state_in_smem else 'the scratch'}, "
+                     f"{4 * b * plan.scratch_floats} B of scratch")
+        else:
+            where = (f"cluster {plan.cluster} x {plan.rows_per_cta} rows, "
+                     f"{'resident' if plan.resident else f'streamed in {plan.tile}-row tiles'}")
         print(f"kernel {variant} {label}: ok, loss {loss_k:.6f} vs plain {loss_r:.6f}, equal U {eq_u:.5f} "
               f"V {eq_v:.5f}, max|diff| {err:g}; {where}, {plan.smem_bytes} B smem", flush=True)
         out[variant] = dict(uk=uk, vk=vk, err=err, eq=min(eq_u, eq_v))
@@ -283,7 +312,7 @@ def check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref, exact: boo
 
 
 def time_pair(bk, x, u0, v0, reps_new: int, reps_old: int) -> dict:
-    """The planned cluster kernel and bcd.cu in turns (new, old, old, new)."""
+    """The planned kernel and bcd.cu in turns (new, old, old, new)."""
     b, m, n = x.shape
     new = bk.KERNEL.plan(m, n, u0.shape[-1]).variant
     t = {new: [], "bcd": []}
@@ -293,11 +322,62 @@ def time_pair(bk, x, u0, v0, reps_new: int, reps_old: int) -> dict:
     return {k: sum(v) / len(v) for k, v in t.items()}
 
 
+def check_integer_init(torch, bk, label, x, u0, v0, bounds) -> None:
+    """From the init projected to integers, every sum of the sweeps on
+    integer X is an exact integer while its magnitude stays below 2**24, as
+    `bk.gs_sum_bound` reckons it along the plain path: there the planned
+    kernel must equal the plain version bit for bit, whatever its order."""
+    b, m, n = x.shape
+    r = u0.shape[-1]
+    lo, hi = bk._int_bounds(bounds)
+    ui, vi = torch.clamp(torch.round(u0), lo, hi), torch.clamp(torch.round(v0), lo, hi)
+    sums = bk.gs_sum_bound(x, ui, vi, ITERS, bounds)
+    planned = bk.KERNEL.plan(m, n, r).variant
+    if sums < bk.EXACT_LIMIT:
+        uk, vk = run_variant(bk, x, ui, vi, bounds, planned)
+        ur, vr = bk.bcd_reference(x, ui, vi, num_iters=ITERS, bounds=bounds)
+        check(torch.equal(uk, ur) and torch.equal(vk, vr), f"{label} {planned}: not bit-equal from the integer init")
+    print(f"kernel {planned} {label}: from the integer init the reckoned sums reach {sums:g}: "
+          f"{'below 2**24, bit-equal to the plain version' if sums < bk.EXACT_LIMIT else 'not below 2**24'}",
+          flush=True)
+
+
+def time_grid(bk, x, u0, v0, reps: int) -> dict:
+    """bcd_grid, bcd.cu and the plain version in turns (grid, bcd, plain,
+    plain, bcd, grid); bcd.cu only where one run takes under BCD_TIMED_MS,
+    else its one run is the reading."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run_variant(bk, x, u0, v0, BOUNDS, "bcd")
+    end.record()
+    torch.cuda.synchronize()
+    once = start.elapsed_time(end)
+    fns = {
+        "bcd_grid": (lambda: run_variant(bk, x, u0, v0, BOUNDS, "bcd_grid"), reps),
+        "bcd": (lambda: run_variant(bk, x, u0, v0, BOUNDS, "bcd"), 1 if once > 100 else 5),
+        "plain": (lambda: bk.bcd_reference(x, u0, v0, num_iters=ITERS), 1),
+    }
+    t = {k: [] for k in fns}
+    for name in ("bcd_grid", "bcd", "plain", "plain", "bcd", "bcd_grid"):
+        if name == "bcd" and once >= BCD_TIMED_MS:
+            continue
+        fn, n = fns[name]
+        t[name].append(cuda_ms(fn, n))
+    out = {k: sum(v) / len(v) for k, v in t.items() if v}
+    if once >= BCD_TIMED_MS:
+        out["bcd"] = once
+    return out
+
+
 def phase_kernel(torch, bk, bcd_mod, seed: int, real_stacks):
     """Phase 3: every kernel that takes a shape against `bcd_reference` on
     the card, at the codec's shapes with integer X and at the main path's
     own float stacks; the same-run timing of the planned cluster kernel and
-    bcd.cu at the N = 64 regimes of TIMED_SHAPES."""
+    bcd.cu at the N = 64 regimes of TIMED_SHAPES, and of bcd_grid, bcd.cu and
+    the plain version at every shape the plan gives bcd_grid."""
     gen = torch.Generator().manual_seed(seed)
     per_shape = {}
     for shape in KERNEL_SHAPES:
@@ -313,24 +393,32 @@ def phase_kernel(torch, bk, bcd_mod, seed: int, real_stacks):
             ref = bk.bcd_reference(x, u0, v0, num_iters=ITERS, bounds=bounds)
             label = f"{shape}" + ("" if bounds == BOUNDS else f" bounds {bounds}")
             res = check_contract(torch, bk, bcd_mod, label, x, u0, v0, bounds, ref, exact=shape in EXACT_SHAPES)
+            check_integer_init(torch, bk, label, x, u0, v0, bounds)
             if bounds != BOUNDS:
                 continue
             entry = dict(err={k: d["err"] for k, d in res.items()}, ms={})
             big = b * m * n > 10_000_000
-            if shape in TIMED_SHAPES:
-                entry["ms"] = time_pair(bk, x, u0, v0, 10 if big else 20, 3 if big else 10)
+            if bk.KERNEL.plan(m, n, r).variant == "bcd_grid":
+                entry["ms"] = time_grid(bk, x, u0, v0, 5 if big else 20)
+                entry["plain_ms"] = entry["ms"].pop("plain")
             else:
-                entry["ms"] = {variants_for(bk, n, r)[0]: cuda_ms(lambda: bk.bcd(x, u0, v0, num_iters=ITERS), 3 if big else 10)}
-            entry["plain_ms"] = cuda_ms(lambda: bk.bcd_reference(x, u0, v0, num_iters=ITERS), 2 if big else 3)
+                if shape in TIMED_SHAPES:
+                    entry["ms"] = time_pair(bk, x, u0, v0, 10 if big else 20, 3 if big else 10)
+                else:
+                    entry["ms"] = {variants_for(bk, n, r)[0]: cuda_ms(lambda: bk.bcd(x, u0, v0, num_iters=ITERS),
+                                                                     3 if big else 10)}
+                entry["plain_ms"] = cuda_ms(lambda: bk.bcd_reference(x, u0, v0, num_iters=ITERS), 2 if big else 3)
             entry["bound_ms"], entry["bound_by"] = bcd_bound_ms(b, m, n, r, ITERS)
             per_shape[shape] = entry
             times = ", ".join(f"{k} {v:.4f} ms ({100 * entry['bound_ms'] / v:.1f}% of bound)"
                               for k, v in entry["ms"].items())
             print(f"time {shape}: {times}; plain {entry['plain_ms']:.4f} ms; bound {entry['bound_ms']:.6g} ms "
                   f"({entry['bound_by']})", flush=True)
+        plan = bk.KERNEL.plan(m, n, r)
         if shape in TIMED_SHAPES:
-            plan = bk.KERNEL.plan(m, n, r)
             print(f"plan {shape}: {plan}; {bk.KERNEL.max_active_clusters(plan, r)} clusters at once", flush=True)
+        elif plan.variant == "bcd_grid":
+            print(f"plan {shape}: {plan}", flush=True)
     # The main path's own stacks: the float YCbCr planes and their shared-eigh init.
     for label, x, u0, v0 in real_stacks:
         ref = bk.bcd_reference(x, u0, v0, num_iters=ITERS, bounds=BOUNDS)
@@ -475,16 +563,25 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
                 device_ms=device_ms, streams=streams, dec=dec)
 
 
-def phase_variants(torch, lt, seed: int):
-    """Phase 5: per-image round trips of the other variants on the card."""
+def phase_variants(torch, lt, bk, seed: int):
+    """Phase 5: per-image round trips of the other variants on the card;
+    each 512x768 encode launches bcd_grid once per BCD call (RGB patches
+    (1, 6144, 192, 19); YCbCr no-patch Y (1, 512, 768, 51), Cb and Cr
+    (1, 256, 384, 13); RGB no-patch (3, 512, 768, 51)) and no other kernel."""
     img = load_images(seed + 1, count=1)[0]
     small = np.ascontiguousarray(img[:, 100:164, 200:296])
-    for kwargs in (
-        dict(color_space="RGB", patch=True),
-        dict(color_space="YCbCr", patch=False),
-        dict(color_space="RGB", patch=False),
+    for kwargs, grid_launches in (
+        (dict(color_space="RGB", patch=True), 1),
+        (dict(color_space="YCbCr", patch=False), 3),
+        (dict(color_space="RGB", patch=False), 1),
     ):
-        dec = lt.qmf_decode(lt.qmf_encode(img, quality=10, device="cuda", **kwargs), device="cuda")
+        for name in bk.KERNEL.counts:
+            bk.KERNEL.counts[name] = 0
+        stream = lt.qmf_encode(img, quality=10, device="cuda", **kwargs)
+        launches = dict(bk.KERNEL.counts)
+        check(launches == only(bk, bcd_grid=grid_launches),
+              f"{kwargs}: launched {launches}, expected bcd_grid {grid_launches} time(s)")
+        dec = lt.qmf_decode(stream, device="cuda")
         check(dec.shape == img.shape and dec.dtype == np.uint8, f"{kwargs}: decoded {dec.shape}")
         p = float(per_image_psnr(img, dec))
         gpu = lt.qmf_decode(lt.qmf_encode(small, quality=10, device="cuda", **kwargs), device="cuda")
@@ -492,7 +589,8 @@ def phase_variants(torch, lt, seed: int):
         dp = abs(float(per_image_psnr(small, gpu)) - float(per_image_psnr(small, cpu)))
         check(np.isfinite(p) and p > 10.0, f"{kwargs}: PSNR {p}")
         check(dp < 0.2, f"{kwargs}: card vs CPU on a 64x96 crop differ by {dp} dB")
-        print(f"variant {kwargs}: ok, 512x768 PSNR {p:.4f} dB; 64x96 card vs CPU |dPSNR| {dp:.6f} dB")
+        print(f"variant {kwargs}: ok, 512x768 PSNR {p:.4f} dB, launches {launches}; 64x96 card vs CPU |dPSNR| "
+              f"{dp:.6f} dB", flush=True)
 
 
 def best_s(fn, reps: int = 3):
@@ -946,12 +1044,22 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
           f"to its encode of all 16; {dist_s:.1f} s with process start-up", flush=True)
 
 
+QUALITIES = (10, 25, 40, 75)
+# Per-image launches that phase 10 requires at the qualities whose Y stack
+# left the R <= 16 cluster kernel: q40 Y on the wide cluster kernel, q75 Y
+# on bcd_grid and its Cb and Cr (R = 24) on the wide cluster kernel.
+PATH_LAUNCHES = {40: {"bcd_cluster_wide": 1, "bcd_cluster": 2}, 75: {"bcd_grid": 1, "bcd_cluster_wide": 2}}
+
+
 def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
-    """Phase 10: `eval_compression` of 4 bench images at q10, q25 and q40
-    on the card, the kernel each stack launched, card metrics against CPU
-    metrics, the planned kernel at every per-image stack (the wide cluster
-    kernel and `bcd.cu` in turns at the q40 Y stack), and `device_benchmark`
-    of the bench encode against phase 4's three calls."""
+    """Phase 10: `eval_compression` of 4 bench images at q10, q25, q40 and
+    q75 on the card, the kernel each stack launched, card metrics against
+    CPU metrics, the planned kernel at every per-image stack (the planned
+    kernel and `bcd.cu` in turns at the q40 and q75 Y stacks), batched q40
+    and q75 encodes against plain-BCD ones, and `device_benchmark` of the
+    bench encode against phase 4's three calls. Returns, per quality of
+    PATH_LAUNCHES, the Y stack's timing entry with the launches counted
+    over that quality's per-image encodes."""
     from lrf_tpu_torch.ops import bcd as bcd_mod
     from lrf_tpu_torch.ops import color, pad, patch, resample
     from lrf_tpu_torch.utils import metrics as tm
@@ -962,11 +1070,13 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
     ms = [(h // 8) * (w // 8), (chroma[0] // 8) * (chroma[1] // 8), (chroma[0] // 8) * (chroma[1] // 8)]
     device_ms = {}
     ranks = {}
-    q40_launches = only(bk)
-    for q in (10, 25, 40):
+    path_launches = {q: only(bk) for q in PATH_LAUNCHES}
+    for q in QUALITIES:
         ranks[q] = lt.build_sharded_encoder("cuda", (h, w), quality=q)[1]["rank"]
         plans = [bk.KERNEL.plan(m, 64, r).variant for m, r in zip(ms, ranks[q])]
         want = {name: plans.count(name) for name in bk.KERNEL.counts}
+        if q in PATH_LAUNCHES:
+            check(want == only(bk, **PATH_LAUNCHES[q]), f"q{q}: the plan gives {want}, expected {PATH_LAUNCHES[q]}")
         stacks = ", ".join(f"{c} (1, {m}, 64, {r}) -> {v}"
                            for c, m, r, v in zip(("Y", "Cb", "Cr"), ms, ranks[q], plans))
         print(f"eval [{label}] q{q}: stacks per image {stacks}", flush=True)
@@ -977,8 +1087,8 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
             out = lt.eval_compression(img, lt.qmf_encode, lt.qmf_decode, reconstruct=True, device="cuda", quality=q)
             counts = dict(bk.KERNEL.counts)
             check(counts == want, f"q{q} image {i}: launches {counts}, expected {want}")
-            if q == 40:
-                q40_launches = {k: q40_launches[k] + counts[k] for k in counts}
+            if q in path_launches:
+                path_launches[q] = {k: path_launches[q][k] + counts[k] for k in counts}
             rec = out["reconstructed"]
             cpu = {"PSNR (dB)": float(tm.psnr(torch.from_numpy(img), torch.from_numpy(rec))),
                    "SSIM": float(tm.ssim(torch.from_numpy(img), torch.from_numpy(rec)))}
@@ -991,47 +1101,49 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
                   f"SSIM {out['SSIM']:.6f} (CPU {cpu['PSNR (dB)']:.4f} dB, {cpu['SSIM']:.6f}); encode "
                   f"{out['encoding time (ms)']:.2f} ms ({out['encoding device time (ms)']:.3f} ms device), decode "
                   f"{out['decoding time (ms)']:.2f} ms; launches {counts}; {out['platform']}", flush=True)
-    print(f"eval [{label}] q40: launches over the 4 per-image encodes {q40_launches}", flush=True)
+        if q in path_launches:
+            print(f"eval [{label}] q{q}: launches over the 4 per-image encodes {path_launches[q]}", flush=True)
 
-    # The batched q40 encode of the 64 bench images: Y (64, 6144, 64, 26) on
-    # the wide cluster kernel, merged Cb+Cr on the R <= 16 one; per-image
-    # PSNR within 0.2 dB of an encode whose BCD is the plain version.
-    m_y = ms[0]
-    want = {name: 0 for name in bk.KERNEL.counts}
-    for m, r in ((m_y, ranks[40][0]), (ms[1], ranks[40][1])):
-        want[bk.KERNEL.plan(m, 64, r).variant] += 1
-    for name in bk.KERNEL.counts:
-        bk.KERNEL.counts[name] = 0
-    streams = lt.sharded_qmf_encode_batch(images, quality=40, device="cuda")
-    batch_launches = dict(bk.KERNEL.counts)
-    check(batch_launches == want, f"batched q40 encode launched {batch_launches}, expected {want}")
-    enc_s, again = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=40, device="cuda"))
-    check(again == streams, "batched q40 encode is not deterministic")
-    plain = lt.sharded_qmf_encode_batch(images, quality=40, device="cuda", backend="torch")
-    p_kernel = per_image_psnr(images, lt.sharded_qmf_decode_batch(streams, device="cuda"))
-    p_plain = per_image_psnr(images, lt.sharded_qmf_decode_batch(plain, device="cuda"))
-    worst = float(np.abs(p_kernel - p_plain).max())
-    check(worst < 0.2, f"batched q40: PSNR differs from the plain-BCD encode by {worst} dB")
-    print(f"eval [{label}] q40 batched encode of {len(images)} images: launches {batch_launches}; "
-          f"{enc_s * 1e3:.2f} ms (best of 3); PSNR mean {p_kernel.mean():.4f} dB, max |dPSNR| against the "
-          f"plain-BCD encode {worst:.6f} dB, {sum(a == c for a, c in zip(streams, plain))}/{len(images)} streams "
-          f"byte-identical", flush=True)
+    # Batched encodes of the 64 bench images at q40 and q75: Y (64, 6144, 64,
+    # R) on its planned kernel, merged Cb+Cr (128, 1536, 64, R / 2) on its
+    # own; per-image PSNR within 0.2 dB of an encode whose BCD is the plain
+    # version.
+    for q in PATH_LAUNCHES:
+        want = {name: 0 for name in bk.KERNEL.counts}
+        for m, r in ((ms[0], ranks[q][0]), (ms[1], ranks[q][1])):
+            want[bk.KERNEL.plan(m, 64, r).variant] += 1
+        for name in bk.KERNEL.counts:
+            bk.KERNEL.counts[name] = 0
+        streams = lt.sharded_qmf_encode_batch(images, quality=q, device="cuda")
+        batch_launches = dict(bk.KERNEL.counts)
+        check(batch_launches == want, f"batched q{q} encode launched {batch_launches}, expected {want}")
+        enc_s, again = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=q, device="cuda"))
+        check(again == streams, f"batched q{q} encode is not deterministic")
+        plain = lt.sharded_qmf_encode_batch(images, quality=q, device="cuda", backend="torch")
+        p_kernel = per_image_psnr(images, lt.sharded_qmf_decode_batch(streams, device="cuda"))
+        p_plain = per_image_psnr(images, lt.sharded_qmf_decode_batch(plain, device="cuda"))
+        worst = float(np.abs(p_kernel - p_plain).max())
+        check(worst < 0.2, f"batched q{q}: PSNR differs from the plain-BCD encode by {worst} dB")
+        print(f"eval [{label}] q{q} batched encode of {len(images)} images: launches {batch_launches}; "
+              f"{enc_s * 1e3:.2f} ms (best of 3); PSNR mean {p_kernel.mean():.4f} dB, max |dPSNR| against the "
+              f"plain-BCD encode {worst:.6f} dB, {sum(a == c for a, c in zip(streams, plain))}/{len(images)} streams "
+              f"byte-identical", flush=True)
 
     # The planned kernel at each per-image stack of image 0 (Y, and Cb, whose
-    # shape and rank Cr shares), as `qmf_encode` runs it; at the q40 Y stack
-    # the wide cluster kernel and bcd.cu in turns.
+    # shape and rank Cr shares), as `qmf_encode` runs it; at the q40 and q75
+    # Y stacks the planned kernel and bcd.cu in turns.
     x = torch.from_numpy(images[:1]).cuda()
     planes = resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))
     stacks = [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8)).contiguous() for c in planes[:2]]
     timed = {}
-    for q in (10, 25, 40):
+    for q in QUALITIES:
         enc_dev = float(np.median(device_ms[q]))
         for name, y, r in zip(("Y", "Cb"), stacks, ranks[q][:2]):
             u0, v0, _ = bcd_mod.svd_init(y, r, bounds=BOUNDS)
             ur, vr = bk.bcd_reference(y, u0, v0, num_iters=ITERS, bounds=BOUNDS)
             shape = tuple(y.shape) + (r,)
             planned = bk.KERNEL.plan(*shape[1:]).variant
-            variants = [planned, "bcd"] if q == 40 and name == "Y" else [planned]
+            variants = [planned, "bcd"] if q in PATH_LAUNCHES and name == "Y" else [planned]
             entry = dict(shape=shape, variant=planned, err={}, eq={})
             for variant in variants:
                 uk, vk = run_variant(bk, y, u0, v0, BOUNDS, variant)
@@ -1049,7 +1161,7 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
             print(f"eval [{label}] q{q} {name} stack {shape}, {1 if name == 'Y' else 2} launch(es) per image encode: "
                   f"{times}; plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.6g} ms "
                   f"({entry['bound_by']})", flush=True)
-    q40 = dict(timed[(40, "Y")], launches=q40_launches, per_stack=timed)
+    paths = {q: dict(timed[(q, "Y")], launches=path_launches[q]) for q in PATH_LAUNCHES}
 
     # device_benchmark of the bench encode (taken in phase 4, right after its
     # three timed calls) against those three calls
@@ -1062,7 +1174,7 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
           f"{', '.join(f'{t:.2f}' for t in p4)} ms (spread {spread:.2f}); best against best {gap:.2f} ms apart", flush=True)
     check(gap <= max(spread, 2 * db["std_ms"]), f"device_benchmark {db['min_ms']:.2f} ms disagrees with phase 4's "
           f"{min(p4):.2f} ms beyond the spread {spread:.2f} ms")
-    return q40
+    return paths
 
 
 def main() -> int:
@@ -1097,7 +1209,7 @@ def main() -> int:
     t0 = time.perf_counter()
     bk.KERNEL.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(bk.SOURCES.values())}, one nvcc each "
-          f"({' '.join(bk.NVCC_FLAGS)}); each nvcc seen done after {bk.KERNEL.build_seconds} s")
+          f"({' '.join(bk.NVCC_FLAGS)}); each nvcc ended after {bk.KERNEL.build_seconds} s")
     for line in ptxas_summary(bk.KERNEL.build_log):
         print(f"build: {line}")
     from lrf_tpu_torch.native import fibercodec as native
@@ -1125,7 +1237,7 @@ def main() -> int:
               f"({100 * kernel_ms / main_run['device_ms']:.1f}%) and of the {main_run['enc_ms']:.2f} ms encode "
               f"({100 * kernel_ms / main_run['enc_ms']:.1f}%), from the phase-3 times at the same shapes")
     if 5 in phases:
-        phase_variants(torch, lt, args.seed)
+        phase_variants(torch, lt, bk, args.seed)
         lap(5)
     if 6 in phases:
         batches = phase_host_tail(torch, lt, bk, args.seed, label)
@@ -1141,7 +1253,7 @@ def main() -> int:
         phase_mesh(torch, lt, bk, args.seed, label, main_run["streams"])
         lap(9)
     if 10 in phases:
-        q40 = phase_eval(torch, lt, bk, args.seed, label, main_run)
+        paths = phase_eval(torch, lt, bk, args.seed, label, main_run)
         lap(10)
     if phases != set(OPTIONAL_PHASES):
         print(f"total: {time.perf_counter() - t_start:.1f} s; partial run (phases 1, 2, 4 and {sorted(phases)}): "
@@ -1167,24 +1279,35 @@ def main() -> int:
             "path": "phase 4: sharded_qmf_encode_batch, 64 x 512x768 at q10",
             "card": label,
         })
-    # The wide ranks' path: the q40 per-image encodes of phase 10, whose Y stack it runs.
-    entries.insert(1, {
-        "name": "bcd_cluster_wide",
-        "route": "cuda",
-        "source": "lrf_tpu_torch/csrc/bcd_cluster_wide.cu",
-        "template": "lrf_tpu_torch/csrc/bcd_cluster.cuh",
-        "replaces": REPLACES,
-        "launches": q40["launches"]["bcd_cluster_wide"],
-        "max_abs_err": q40["err"]["bcd_cluster_wide"],
-        "ms": q40["ms"]["bcd_cluster_wide"],
-        "plain_ms": q40["plain_ms"],
-        "bound_ms": q40["bound_ms"],
-        "bound_by": q40["bound_by"],
-        "library_ms": None,
-        "shapes": [list(q40["shape"])],
-        "path": "phase 10: qmf_encode of 4 bench images at q40",
-        "card": label,
-    })
+    # The wide ranks' path: the q40 per-image encodes of phase 10, whose Y
+    # stack they run; bcd_grid's: the q75 ones, whose Y stack it runs (its
+    # error also over every phase-3 shape it took).
+    grid_keys = [k for k in per_shape if "bcd_grid" in per_shape[k]["err"]]
+    for pos, (name, source, q) in enumerate((("bcd_cluster_wide", "lrf_tpu_torch/csrc/bcd_cluster_wide.cu", 40),
+                                            ("bcd_grid", "lrf_tpu_torch/csrc/bcd_grid.cu", 75))):
+        path = paths[q]
+        err = path["err"][name]
+        if name == "bcd_grid":
+            err = max([err] + [per_shape[k]["err"]["bcd_grid"] for k in grid_keys])
+        entries.insert(1 + pos, {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            **({"template": "lrf_tpu_torch/csrc/bcd_cluster.cuh"} if name == "bcd_cluster_wide" else {}),
+            "replaces": REPLACES,
+            "launches": path["launches"][name],
+            "max_abs_err": err,
+            "ms": path["ms"][name],
+            "plain_ms": path["plain_ms"],
+            "bound_ms": path["bound_ms"],
+            "bound_by": path["bound_by"],
+            "library_ms": None,
+            "shapes": [list(path["shape"])],
+            "path": f"phase 10: qmf_encode of 4 bench images at q{q}",
+            "card": label,
+        })
+    for e in entries:
+        check(e["name"] == "bcd" or e["launches"] > 0, f"{e['name']} was not launched on its path")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(label)
     print(json.dumps({"kernels": entries}))

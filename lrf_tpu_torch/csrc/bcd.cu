@@ -7,12 +7,13 @@
 //   K2  _bcd_stream_kernel   (launched by bcd_pallas, X streamed in M-tiles)
 //   K3  _legacy_bcd_kernel   (launched by _bcd_pallas_legacy, M >= 16384)
 // The three variants exist only for the TPU's VMEM budget and 8-aligned
-// sublane starts; this one kernel covers every shape they covered. Since the
-// cluster kernel of bcd_cluster.cuh took over the codec's patch width
-// (N = 64, R <= 32: bcd_cluster.cu and bcd_cluster_wide.cu), this kernel
-// runs the rest: N != 64 (RGB patches, the no-patch codec) or R > 32
-// (quality above 50), as ops/bcd_kernel.py::launch_plan picks by shape. It
-// stays available at every shape for same-run comparisons.
+// sublane starts; this one kernel covers every shape they covered.
+//
+// Forced comparison only. ops/bcd_kernel.py::launch_plan plans no shape on
+// this kernel: the cluster kernel of bcd_cluster.cuh takes N = 64 with
+// R <= 32 (bcd_cluster.cu, bcd_cluster_wide.cu) and bcd_grid.cu every other
+// shape. It runs only through KERNEL.launch(..., variant="bcd"), as the
+// yardstick that chip_smoke.py times in turns with the planned kernel.
 //
 // Function. For image b with X (M, N), U (M, R), V (N, R), each sweep does
 //   B = V^T V;  for every row m of U, with a = X[m, :] V, for r = 0..R-1:
@@ -47,7 +48,6 @@
 // kernel uses one SM per image, re-reads X from device memory every sweep
 // and, once V and the Grams spill to global scratch (N = 192, 768), reads
 // them from there; PERF.md holds its measured times against that bound.
-// Redesigning N = 192 and 768 and R > 32 is queued (ROADMAP queue 2).
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -13,8 +13,12 @@ patch stacks and returns integer-valued float32 `(u, v)`:
     streaming it when it does not fit). Its ranks 1-16 build from
     `csrc/bcd_cluster.cu` ("bcd_cluster") and 17-32 from
     `csrc/bcd_cluster_wide.cu` ("bcd_cluster_wide"), in two nvcc processes;
-  - `csrc/bcd.cu` ("bcd") for the other shapes (N != 64 or R > 32): one
-    thread block per image, X streamed through shared memory every sweep;
+  - `csrc/bcd_grid.cu` ("bcd_grid") for the other shapes (N != 64 or
+    R > 32): one image split over a grid of CTAs by M tiles, each
+    half-sweep a grid-wide phase, R a run-time argument;
+  `csrc/bcd.cu` ("bcd", one thread block per image) takes every shape but
+  runs only when forced (`KERNEL.launch(..., variant="bcd")`), as the
+  yardstick of same-run comparisons;
 - on CPU tensors it runs `bcd_reference`, the plain PyTorch version;
 - anything else raises. There is no fallback from one to the other.
 
@@ -40,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from lrf_tpu_torch.ops.bcd import bcd_sweep, make_project
+from lrf_tpu_torch.ops.bcd import bcd_sweep, make_project, update_columns
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,10 +54,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # The kernels: name -> source under csrc/ (one library, one nvcc each).
-SOURCES = {"bcd_cluster": "bcd_cluster.cu", "bcd_cluster_wide": "bcd_cluster_wide.cu", "bcd": "bcd.cu"}
+SOURCES = {
+    "bcd_cluster": "bcd_cluster.cu",
+    "bcd_cluster_wide": "bcd_cluster_wide.cu",
+    "bcd_grid": "bcd_grid.cu",
+    "bcd": "bcd.cu",
+}
 
 # Geometry of bcd_cluster.cuh (its kN, kThreads, kMaxCluster, and each
-# source's kMinRank..kMaxRank) and of bcd.cu (kThreads).
+# source's kMinRank..kMaxRank), of bcd_grid.cu (kThreads, kBlock, kChunk)
+# and of bcd.cu (kThreads).
 CLUSTER_N = 64
 CLUSTER_THREADS = 256
 CLUSTER_RANKS = {"bcd_cluster": (1, 16), "bcd_cluster_wide": (17, 32)}
@@ -63,6 +73,15 @@ CLUSTER_MAX = 16
 # thread updates one row of a tile.
 STREAM_TILES = (256, 128)
 BLOCK_THREADS = 512
+GRID_THREADS = 256
+# bcd_grid tiles: at most GRID_TILE rows (the kernel's A = X V covers one
+# 64-row block), halved down to GRID_MIN_TILE while an image would fill
+# fewer than GRID_MIN_CTAS CTAs, then halved further while a tile does not
+# fit in shared memory.
+GRID_TILE = 64
+GRID_MIN_TILE = 8
+GRID_MIN_CTAS = 16
+GRID_CHUNK = 32 * 64  # one staged chunk of V: kChunk x kBlock floats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,12 +89,16 @@ class Plan:
     """How one shape runs.
 
     `variant` is "bcd_cluster" (N = 64, R <= 16), "bcd_cluster_wide"
-    (N = 64, 17 <= R <= 32) or "bcd". `cluster` CTAs per image each own
-    `rows_per_cta` rows of X; `resident` says whether that slice stays in
-    shared memory for all sweeps (else it streams through `tile`-row tiles).
-    For "bcd" (one block per image, X always streamed), `state_in_smem` says
-    whether V, the Grams and X^T U sit in shared memory or in a global
-    scratch.
+    (N = 64, 17 <= R <= 32), "bcd_grid" (the rest) or "bcd" (forced only).
+    `cluster` CTAs per image each own `rows_per_cta` rows of X; `resident`
+    says whether that slice stays in shared memory for all sweeps (else it
+    streams through `tile`-row tiles). For "bcd_grid" `cluster` is the
+    number of M tiles (a grid, not a thread-block cluster), each of `tile`
+    rows; `state_in_smem` says whether V^T V sits in shared memory beside
+    the tile, and `scratch_floats` is the global scratch per image (tile
+    partials, their sums, V^T V). For "bcd" (one block per image, X always
+    streamed), `state_in_smem` says whether V, the Grams and X^T U sit in
+    shared memory or in a global scratch.
     """
 
     variant: str
@@ -85,6 +108,7 @@ class Plan:
     tile: int
     smem_bytes: int
     state_in_smem: bool = True
+    scratch_floats: int = 0
 
 
 def _round4(x: int) -> int:
@@ -127,6 +151,45 @@ def _block_plan(m: int, n: int, r: int, smem_optin: int) -> Plan:
     return Plan("bcd", 1, m, False, t, 4 * t * row, False)
 
 
+def grid_smem_bytes(t: int, n: int, r: int, g_smem: bool) -> int:
+    """Bytes of shared memory of one bcd_grid U-phase CTA (`u_smem_floats`
+    in bcd_grid.cu): the X tile at odd row stride N | 1, the U and residual
+    tiles at odd row stride R | 1, one staged chunk of V, and V^T V when it
+    sits there."""
+    return 4 * (t * (n | 1) + 2 * t * (r | 1) + GRID_CHUNK + (r * r if g_smem else 0))
+
+
+def grid_scratch_floats(m: int, n: int, r: int, t: int) -> int:
+    """Global scratch of bcd_grid per image, in floats: each tile's partials
+    of X^T U and U^T U, their sums over tiles, and V^T V."""
+    e = n * r + r * r
+    return -(-m // t) * e + e + r * r
+
+
+def _grid_plan(m: int, n: int, r: int, smem_optin: int) -> Plan:
+    """bcd_grid.cu: one image over ceil(M / T) CTAs. T depends on (M, N, R)
+    only: GRID_TILE rows, halved while the image would fill fewer than
+    GRID_MIN_CTAS CTAs (not below GRID_MIN_TILE), at most M; V^T V beside
+    the tile when it fits, else in the scratch; T halved further while the
+    tile does not fit."""
+    t = GRID_TILE
+    while t > GRID_MIN_TILE and -(-m // t) < GRID_MIN_CTAS:
+        t //= 2
+    t = min(t, m)
+    while True:
+        for g_smem in (True, False):
+            smem = grid_smem_bytes(t, n, r, g_smem)
+            if smem <= smem_optin:
+                tiles = -(-m // t)
+                return Plan("bcd_grid", tiles, t, False, t, smem, g_smem, grid_scratch_floats(m, n, r, t))
+        if t == 1:
+            raise ValueError(
+                f"the bcd_grid kernel needs {smem} B of shared memory for one row of X (M={m} N={n} R={r}), "
+                f"the device has {smem_optin}"
+            )
+        t //= 2
+
+
 def _cluster_plan(variant: str, m: int, r: int, smem_optin: int) -> Plan:
     """bcd_cluster.cuh: the smallest cluster whose CTAs hold their X slice
     resident; else the largest cluster, streaming tiles of the largest of
@@ -161,12 +224,15 @@ def launch_plan(m: int, n: int, r: int, smem_optin: int, variant: Optional[str] 
     `smem_optin` is the shared memory a block may opt into. `variant`
     forces one kernel (for same-run comparisons); by default the cluster
     kernels take N = 64 with R <= 32 (R <= 16 "bcd_cluster", 17-32
-    "bcd_cluster_wide") and bcd.cu the rest.
+    "bcd_cluster_wide") and bcd_grid.cu the rest. bcd.cu runs only when
+    forced.
     """
     if variant is None:
-        variant = cluster_variant(n, r) or "bcd"
+        variant = cluster_variant(n, r) or "bcd_grid"
     if variant == "bcd":
         return _block_plan(m, n, r, smem_optin)
+    if variant == "bcd_grid":
+        return _grid_plan(m, n, r, smem_optin)
     if variant not in CLUSTER_RANKS:
         raise ValueError(f"unknown bcd kernel {variant!r}")
     lo, hi = CLUSTER_RANKS[variant]
@@ -202,7 +268,7 @@ class _KernelLib:
         self.defines = tuple(defines)  # extra nvcc flags, e.g. a profiling build's -D
         self.counts = {name: 0 for name in SOURCES}
         self.build_log = ""
-        self.build_seconds = {}  # source -> seconds from the build's start until its nvcc was seen done
+        self.build_seconds = {}  # source -> seconds from the build's start until its nvcc ended
         self._lib = None  # name -> ctypes.CDLL, once loaded
         self._smem_optin = 0
         self._lock = threading.Lock()
@@ -237,12 +303,22 @@ class _KernelLib:
         for name, path in todo.items():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
+            log = tempfile.TemporaryFile(mode="w+")  # nvcc's output, read once it has ended
             cmd = [nvcc, *NVCC_FLAGS, *self.defines, "-o", tmp, str(CSRC / SOURCES[name])]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+            procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True), tmp, log)
+        pending = set(procs)
+        while pending:  # each source's own nvcc time, whatever order they end in
+            for name in list(pending):
+                if procs[name][0].poll() is not None:
+                    self.build_seconds[SOURCES[name]] = round(time.perf_counter() - t0, 2)
+                    pending.discard(name)
+            if pending:
+                time.sleep(0.05)
         logs, failed = [], []
-        for name, (proc, tmp) in procs.items():
-            out, _ = proc.communicate()
-            self.build_seconds[SOURCES[name]] = round(time.perf_counter() - t0, 2)
+        for name, (proc, tmp, log) in procs.items():
+            log.seek(0)
+            out = log.read()
+            log.close()
             logs.append(f"== {SOURCES[name]}\n{out}")
             if proc.returncode != 0:
                 failed.append(f"{SOURCES[name]} ({proc.returncode})")
@@ -265,6 +341,18 @@ class _KernelLib:
                 _bind(block, "lrf_bcd_smem_optin", _I, ctypes.POINTER(_I))
                 _bind(block, "lrf_cuda_error_string", ctypes.c_char_p, _I)
                 geometry = [(block.lrf_bcd_threads(), BLOCK_THREADS)]
+                grid = libs["bcd_grid"]
+                _bind(grid, "lrf_bcdg_launch", _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P)
+                _bind(grid, "lrf_bcdg_threads", _I)
+                _bind(grid, "lrf_bcdg_smem_bytes", ctypes.c_longlong, _I, _I, _I, _I)
+                _bind(grid, "lrf_bcdg_scratch_floats", ctypes.c_longlong, _I, _I, _I, _I)
+                _bind(grid, "lrf_cuda_error_string", ctypes.c_char_p, _I)
+                geometry.append((grid.lrf_bcdg_threads(), GRID_THREADS))
+                # grid_smem_bytes and grid_scratch_floats against the kernel's own
+                for m, n, r, t in ((6144, 192, 96, 64), (512, 768, 51, 32), (5, 192, 8, 5), (128, 64, 64, 8)):
+                    geometry += [(grid.lrf_bcdg_smem_bytes(t, n, r, g), grid_smem_bytes(t, n, r, bool(g)))
+                                 for g in (0, 1)]
+                    geometry.append((grid.lrf_bcdg_scratch_floats(m, n, r, t), grid_scratch_floats(m, n, r, t)))
                 for name, ranks in CLUSTER_RANKS.items():
                     cluster = libs[name]
                     _bind(cluster, "lrf_bcdc_launch", _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _Z, _P)
@@ -319,7 +407,14 @@ class _KernelLib:
         r = u.shape[-1]
         plan = launch_plan(m, n, r, self._smem_optin, variant)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan.variant in CLUSTER_RANKS:
+        if plan.variant == "bcd_grid":
+            lib = libs["bcd_grid"]
+            scratch = torch.empty(b * plan.scratch_floats, dtype=torch.float32, device=x.device)
+            err = lib.lrf_bcdg_launch(
+                x.data_ptr(), u.data_ptr(), v.data_ptr(), scratch.data_ptr(), b, m, n, r, plan.tile, num_iters,
+                lo, hi, int(plan.state_in_smem), stream,
+            )
+        elif plan.variant in CLUSTER_RANKS:
             lib = libs[plan.variant]
             if x.data_ptr() % 16:
                 x = x.clone()  # cp.async copies 16-byte chunks
@@ -364,6 +459,38 @@ def bcd_reference(x, u0, v0, num_iters: int = 10, bounds=(-16, 15)):
     for _ in range(num_iters):
         u, v, w = bcd_sweep(x, u, v, w, factor=(0, 1), project=project)
     return u, v
+
+
+# Float32 represents every integer of magnitude below 2**24 exactly.
+EXACT_LIMIT = 2.0**24
+
+
+def gs_sum_bound(x, u0, v0, num_iters: int = 10, bounds=(-16, 15)) -> float:
+    """The largest magnitude any partial sum of the sweeps can reach, in any
+    summation order, along the plain version's path from `(u0, v0)`.
+
+    Per half-sweep it takes the A entries |X| |V| (or |X|^T |U|), the Gram
+    entries |V|^T |V|, and each Gauss-Seidel numerator, bounded by |A| +
+    max|factor| * (column sum of |Gram|), max|factor| being the larger of
+    the bounds and the factor's largest entry. On integer X, once the
+    factors are integers, a bound below EXACT_LIMIT makes every sum exact,
+    so any two kernels give the same bits. Runs in float64 on x's device.
+    """
+    project = make_project(bounds)
+    lim = max(abs(bounds[0]), abs(bounds[1]))
+    xd = x.double()
+    u, v = u0.double(), v0.double()
+    worst = 0.0
+    for _ in range(num_iters):
+        for side in (0, 1):
+            x_side, f, g = (xd, u, v) if side == 0 else (xd.transpose(-1, -2), v, u)
+            a = x_side.abs() @ g.abs()
+            gram = g.abs().transpose(-1, -2) @ g.abs()
+            dot = max(lim, float(f.abs().max())) * gram.sum(dim=-2)
+            worst = max(worst, float(gram.max()), float((a + dot[..., None, :]).max()))
+            new = update_columns(x_side @ g, g.transpose(-1, -2) @ g, f, 0.0, 0.0, project)
+            u, v = (new, v) if side == 0 else (u, new)
+    return worst
 
 
 def bcd(

@@ -61,6 +61,31 @@ def test_plain_bcd_matches_jax_and_pallas(b, m, n, r):
     _close(x, ut.numpy(), vt.numpy(), up, vp)
 
 
+# The regimes launch_plan gives the bcd_grid kernel on the card: N = 64 at
+# R > 32, RGB patches (N = 192), and a no-patch width (N = W). On the CPU the
+# wrapper runs `bcd_reference`, held here against the JAX sweeps (and, at
+# the first shape, the Pallas kernel in interpret mode) from one init, with
+# the tolerance above.
+GRID_SHAPES = [(2, 48, 64, 40), (1, 64, 64, 64), (1, 120, 192, 20), (1, 48, 80, 30)]
+
+
+@pytest.mark.parametrize("b,m,n,r", GRID_SHAPES)
+def test_plain_bcd_matches_jax_in_grid_kernel_regimes(b, m, n, r):
+    x = RNG.integers(0, 256, (b, m, n)).astype(np.float32)
+    u0, v0, _ = jbcd.svd_init(jnp.asarray(x), r, bounds=(-16, 15))
+    uj, vj = _jax_reference(jnp.asarray(x), u0, v0, 4, (-16, 15))
+    ut0, vt0 = state_from_numpy(np.asarray(u0), np.asarray(v0), device="cpu")
+    ut, vt = bcd_kernel.bcd(torch.from_numpy(x), ut0, vt0, num_iters=4, bounds=(-16, 15))
+    assert bcd_kernel.cluster_variant(n, r) is None  # a bcd_grid shape on the card
+    assert ut.shape == (b, m, r) and vt.shape == (b, n, r)
+    for f in (ut, vt):
+        assert torch.all(f == torch.round(f)) and f.min() >= -16 and f.max() <= 15
+    _close(x, ut.numpy(), vt.numpy(), uj, vj)
+    if (b, m, n, r) == GRID_SHAPES[0]:
+        up, vp = bcd_pallas(jnp.asarray(x), u0, v0, num_iters=4, bounds=(-16, 15), interpret=True)
+        _close(x, ut.numpy(), vt.numpy(), up, vp)
+
+
 def test_bounds_and_integrality():
     x = torch.from_numpy(RNG.integers(0, 256, (2, 200, 64)).astype(np.float32))
     u, v, w = bcd.qmf_decompose(x, rank=6, num_iters=3, bounds=(-8, 7))
