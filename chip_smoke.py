@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`lrf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--phases 3,5,6,7,8,9,10]
+    python3 chip_smoke.py [--seed N] [--phases 3,5,6,7,8,9,10,11]
 
 Phases, each of which raises (exit code != 0) when a check fails:
 
@@ -34,7 +34,8 @@ Phases, each of which raises (exit code != 0) when a check fails:
    R <= 16 cluster kernel must be launched exactly twice (Y, merged Cb+Cr)
    and the others not at all, per-image `qmf_decode` must give the batched
    decode's pixels, and per-image PSNR must be within 0.2 dB of an encode
-   whose BCD is the plain version;
+   whose BCD is the plain version; its encode rate is the best of three
+   calls timed after two untimed ones;
 5. per-image round trips of the other codec variants on the card, each
    held against the same encode on the CPU at a small size; each 512x768
    encode launches `bcd_grid` once (RGB patches, RGB no-patch) or three
@@ -84,7 +85,29 @@ Phases, each of which raises (exit code != 0) when a check fails:
    is the plain version);
    `device_benchmark` of the bench encode (five runs taken in phase 4
    right after its three timed calls, so both see the same host): its best
-   within the spread of those calls (or twice its own deviation) of theirs.
+   within the spread of those calls (or twice its own deviation) of theirs;
+11. secondary codecs and CLI, at the bench image size: the CLI in this
+   process (`lrf_tpu_torch.cli.main`) encodes a 512x768 PNG at q10 with
+   `bcd_cluster` launched 3 times (Y, Cb, Cr) and no other kernel, bytes
+   equal to `qmf_encode`'s, decodes to `qmf_decode`'s pixels, prints JSON
+   from `info` and `eval`, and does the same as `python -m lrf_tpu_torch`
+   and with `--codec svd`; the SVD codec on 8 images (RGB patches and
+   YCbCr, q10 and q50), HOSVD at com_ratio 50 and patch-HOSVD at bpp 0.5
+   and at bpp 1 with 16x16 patches (its SSIM rank search: candidates, ms,
+   and the rank or best SSIM against the CPU's) on one image, each card result
+   against the CPU's: cross-decode both ways (at most 1 apart in under 0.1%
+   of pixels), the same ranks, reconstructions from the float factors within
+   1e-3 (relative), and with the CPU's signs PSNR within 0.1 dB (the codecs'
+   truncating quantizers are not sign-free, and the solvers pick signs by
+   their own rules); the card's own streams at most 2 dB below the CPU's (the
+   gap with the quantizer's bias taken out at decode is printed); TT of a (3, 512,
+   768) image, relative error within 1e-4 of the CPU's; `QMF.decompose` and
+   `qmf_decompose_cuda` on one Y stack, one `bcd_cluster` launch each, and
+   `QMF(verbose=True)` one per sweep, bits equal to `qmf_decompose`; `HOSVD` and
+   `SVDInit`; `jacobi_eigh` on the 192 bench Grams against
+   `torch.linalg.eigh` (eigenvalues, leading eigenvectors, device ms and
+   device kernels of each), and Jacobi-init encodes against the default at
+   q10 and q40 on 8 images.
 
 It prints one JSON line of per-kernel numbers (for the R <= 16 cluster
 kernel and `bcd.cu` summed over the two main-path shapes; for the wide
@@ -102,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import glob
 import json
 import os
@@ -160,7 +184,7 @@ BCD_TIMED_MS = 1000.0
 # What each kernel replaces (the TPU kernels' pallas_call sites).
 REPLACES = "lrf_tpu/ops/bcd_pallas.py:519 (K1, K2), lrf_tpu/ops/bcd_pallas.py:722 (K3)"
 # Phases that --phases can leave out; 1 (card), 2 (build) and 4 (main path) always run.
-OPTIONAL_PHASES = (3, 5, 6, 7, 8, 9, 10)
+OPTIONAL_PHASES = (3, 5, 6, 7, 8, 9, 10, 11)
 
 
 class CheckFailed(AssertionError):
@@ -501,6 +525,10 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
           f"main path launched the kernels {launches} times, expected bcd_cluster twice (Y, Cb+Cr)")
     print(f"main path: kernel launches {launches} in one encode of {b} images (first encode {first_s:.3f} s)")
 
+    # Two untimed encodes first: the timed ones read up to 27 ms (11%) slower
+    # right after the first encode than a few seconds later (PERF.md section 7).
+    for _ in range(2):
+        lt.sharded_qmf_encode_batch(images, quality=10, device="cuda")
     enc_s = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -508,6 +536,10 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
         again = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda")
         enc_s.append(time.perf_counter() - t0)
     check(again == streams, "batched encode is not deterministic")
+    # device_benchmark of the same encode right after the three calls, so
+    # both see the same host; phase 10 holds the two against each other
+    bench = lt.device_benchmark(lambda: lt.sharded_qmf_encode_batch(images, "cuda", 10), warmup=0, repeats=5,
+                                pixels=b * h * w)
 
     fn, metadata, _ = lt.build_sharded_encoder("cuda", (h, w), quality=10)
     x_dev = torch.from_numpy(images).cuda()
@@ -546,11 +578,6 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     worst = float(np.abs(p_kernel - p_plain).max())
     check(worst < 0.2, f"PSNR differs from the plain-BCD encode by {worst} dB")
     same = sum(a == c for a, c in zip(streams, plain_streams))
-
-    # device_benchmark of the same encode right after the three calls, so
-    # both see the same host; phase 10 holds the two against each other
-    bench = lt.device_benchmark(lambda: lt.sharded_qmf_encode_batch(images, "cuda", 10), warmup=0, repeats=5,
-                                pixels=b * h * w)
     enc_best, dec_best = min(enc_s), min(dec_s)
     print(f"main path: PSNR mean {p_kernel.mean():.4f} dB (min {p_kernel.min():.4f}); plain-BCD encode "
           f"max |dPSNR| {worst:.6f} dB, {same}/{b} streams byte-identical")
@@ -1177,6 +1204,411 @@ def phase_eval(torch, lt, bk, seed: int, label: str, main_run) -> dict:
     return paths
 
 
+def close_pixels(a: np.ndarray, b: np.ndarray, what: str) -> None:
+    """The cross-decode contract: at most 1 apart, in under 0.1% of pixels."""
+    check(a.shape == b.shape and a.dtype == b.dtype == np.uint8, f"{what}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    check(int(diff.max()) <= 1 and float((diff > 0).mean()) < 1e-3,
+          f"{what}: max |diff| {int(diff.max())}, {float((diff > 0).mean()):.5f} of pixels differ")
+
+
+def column_signs(torch, a, b):
+    """(the sign of each column of `a` against the same column of `b`, the
+    least |cos| between matched columns); columns run over dim -2."""
+    b = b.to(a.device)
+    cos = (a * b).sum(-2) / (a.norm(dim=-2) * b.norm(dim=-2)).clamp(min=1e-30)
+    return torch.where(cos < 0, -1.0, 1.0), float(cos.abs().min())
+
+
+def relative_gap(torch, a, b) -> float:
+    b = b.to(a.device)
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def align_svd(torch, card, cpu):
+    """The card's `(u, v)` with the CPU's signs, and `(least |cos|, relative
+    gap, components whose sign differs, components, leading component
+    negative on the card, on the CPU)`; a component is negative where its
+    u column sums below 0."""
+    (u, v), (u_cpu, v_cpu) = card, cpu
+    sign, cos = column_signs(torch, u, u_cpu)
+    gap = relative_gap(torch, u @ v.transpose(-1, -2), u_cpu @ v_cpu.transpose(-1, -2))
+    lead = (float(u[..., 0].sum()) < 0, float(u_cpu[..., 0].sum()) < 0)
+    return (u * sign[..., None, :], v * sign[..., None, :]), (cos, gap, int((sign < 0).sum()), sign.numel(), *lead)
+
+
+def align_hosvd(torch, card, cpu):
+    from lrf_tpu_torch.ops.hosvd import multi_mode_product
+
+    (core, factors), (core_cpu, cpu_factors) = card, cpu
+    gap = relative_gap(torch, multi_mode_product(core, factors), multi_mode_product(core_cpu, cpu_factors))
+    out, worst = [], 1.0
+    for mode, (f, g) in enumerate(zip(factors, cpu_factors)):
+        sign, cos = column_signs(torch, f, g)
+        worst = min(worst, cos)
+        out.append(f * sign)
+        core = core * sign.reshape([-1 if d == mode else 1 for d in range(core.ndim)])
+    return (core, out), (worst, gap)
+
+
+class cpu_signs:
+    """Within the block, `mod.name(x, ...)` gives its result on x's device
+    with each component's sign set to the one it takes on the CPU, as
+    `align` matches them; `(least |cos| of the matched columns, relative gap
+    of the reconstructions)` of each call goes to `worst`. The factors'
+    signs are the eigen- or SVD solver's own, and the codecs' truncating
+    quantizers are not sign-free, so this is how a card stream is held to a
+    CPU stream. Trailing components of near-equal singular values are
+    ill-posed one by one, so the factors are held by their (sign-free)
+    reconstruction, and the |cos| is printed. `align` returns the aligned
+    result and a tuple that starts `(least |cos|, relative gap)`."""
+
+    def __init__(self, torch, mod, name: str, align, worst: list):
+        self.torch, self.mod, self.name, self.align, self.worst = torch, mod, name, align, worst
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.mod, self.name)
+
+        def wrapped(x, *args, **kwargs):
+            out, cos = self.align(self.torch, fn(x, *args, **kwargs), fn(x.cpu(), *args, **kwargs))
+            self.worst.append(cos)
+            return out
+
+        setattr(self.mod, self.name, wrapped)
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+
+@contextlib.contextmanager
+def debiased(mod):
+    """Within the block, `mod`'s decoders dequantize each factor with half a
+    step added: the truncating quantizer leaves every entry of a factor on
+    average half a step (scale / 2) low, and at pixel (i, j) of U V^T that
+    bias sums to -(scale_u / 2) sum_k V[j, k] - (scale_v / 2) sum_k U[i, k]
+    + R scale_u scale_v / 4, which depends on each component's sign. With the
+    half step added the bias is gone, and what is left of the PSNR gap that
+    the solvers' signs leave comes from the quantization scales they move.
+    A reading of the mechanism only: the codecs' decoders and format stay
+    as they are."""
+    fn = mod.np_dequantize
+    mod.np_dequantize = lambda q, scale, min_val: fn(q, scale, min_val) + np.float32(scale) / 2
+    try:
+        yield
+    finally:
+        mod.np_dequantize = fn
+
+
+# The card's own streams (the solvers' own signs) against the CPU's: PSNR at
+# most RAW_GAP_DB below the CPU stream's per image. On an H100 (700 W) the
+# largest drop read before this bound was set is 1.61 dB (SVD YCbCr q50); a
+# card stream that reads higher is no fault (patch-HOSVD at bpp 1 reads
+# 1.95 dB higher). The gap once `debiased` takes out the quantizer's bias is
+# printed, not held: the signs also move each factor's shared quantization
+# scale, which left one bench image 0.32 dB apart at SVD RGB q50 with the
+# bias gone.
+RAW_GAP_DB = 2.0
+
+
+def run_cli(cli, *argv) -> str:
+    """`lrf_tpu_torch.cli.main(argv)` in this process; its standard output."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    check(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
+    return out.getvalue()
+
+
+def phase_cli(torch, lt, bk, img: np.ndarray, label: str, tmp: str) -> None:
+    """Phase 11, the CLI: encode / decode / info / eval of a 512x768 PNG at
+    q10 in this process, once more as `python -m lrf_tpu_torch`, and the
+    SVD codec once."""
+    from PIL import Image
+
+    from lrf_tpu_torch import cli
+
+    png = os.path.join(tmp, "img.png")
+    Image.fromarray(np.ascontiguousarray(img.transpose(1, 2, 0))).save(png)
+    stream_path = os.path.join(tmp, "img.lrf")
+    for name in bk.KERNEL.counts:
+        bk.KERNEL.counts[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(cli, "encode", png, stream_path, "--quality", "10")
+    enc_s = time.perf_counter() - t0
+    launches = dict(bk.KERNEL.counts)
+    check(launches == only(bk, bcd_cluster=3), f"cli encode launched {launches}, expected bcd_cluster 3 times")
+    with open(stream_path, "rb") as f:
+        stream = f.read()
+    check(stream == lt.qmf_encode(img, quality=10, device="cuda"), "cli stream differs from qmf_encode's")
+    out_png = os.path.join(tmp, "round.png")
+    t0 = time.perf_counter()
+    run_cli(cli, "decode", stream_path, out_png)
+    dec_s = time.perf_counter() - t0
+    dec = np.asarray(Image.open(out_png).convert("RGB")).transpose(2, 0, 1)
+    check(np.array_equal(dec, lt.qmf_decode(stream, device="cuda")), "cli decode differs from qmf_decode")
+    info = json.loads(run_cli(cli, "info", stream_path))
+    check(info["codec"] == "qmf" and info["bytes"] == len(stream) and info["rank"] == [6, 3, 3], f"cli info {info}")
+    result = json.loads(run_cli(cli, "eval", png, "--quality", "10"))
+    check(np.isfinite(result["PSNR (dB)"]) and result["PSNR (dB)"] > 15 and result["platform"].startswith("cuda"),
+          f"cli eval {result}")
+    again = os.path.join(tmp, "again.lrf")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lrf_tpu_torch", "encode", png, again, "--quality", "10"],
+                          cwd=HERE, capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m lrf_tpu_torch encode: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(again, "rb") as f:
+        check(f.read() == stream, "python -m lrf_tpu_torch wrote another stream")
+    svd_path, svd_png = os.path.join(tmp, "img.svd.lrf"), os.path.join(tmp, "svd.png")
+    run_cli(cli, "encode", png, svd_path, "--codec", "svd", "--quality", "10")
+    run_cli(cli, "decode", svd_path, svd_png)
+    with open(svd_path, "rb") as f:
+        svd_stream = f.read()
+    check(json.loads(run_cli(cli, "info", svd_path))["codec"] == "svd", "cli info does not detect the SVD stream")
+    svd_dec = np.asarray(Image.open(svd_png).convert("RGB")).transpose(2, 0, 1)
+    check(np.array_equal(svd_dec, lt.svd_decode(svd_stream, device="cuda")), "cli SVD decode differs from svd_decode")
+    print(f"cli [{label}]: encode of a 512x768 PNG at q10 launched {launches}, {len(stream)} B equal to qmf_encode's, "
+          f"{enc_s * 1e3:.1f} ms in process (PNG read and file write included); decode {dec_s * 1e3:.1f} ms, pixels "
+          f"equal to qmf_decode's; info and eval JSON ok (eval PSNR {result['PSNR (dB)']:.4f} dB, {result['platform']}); "
+          f"python -m lrf_tpu_torch encode exit 0, same bytes, {sub_s:.1f} s with process start-up; --codec svd "
+          f"{len(svd_stream)} B, detected and decoded", flush=True)
+
+
+def phase_svd_codec(torch, lt, images: np.ndarray, label: str) -> None:
+    """Phase 11, the SVD codec on 8 bench images, RGB patches (the default)
+    and YCbCr at q10 and q50: card streams decode on the CPU and CPU streams
+    on the card (the cross-decode contract); the card's U V^T is within 1e-3
+    of the CPU's (relative), and with the CPU's signs the card
+    stream's PSNR is within 0.1 dB of the CPU stream's. The card's own
+    stream (the solvers' own signs) is at most RAW_GAP_DB below the CPU's; the
+    gap with both decoded `debiased`, how many components the card's solver
+    signs otherwise, and how often each side's leading component is
+    negative, are printed."""
+    from lrf_tpu_torch.models import svd as msvd
+
+    for kw in (dict(quality=10), dict(quality=10, color_space="YCbCr")):  # warm-up: cuSOLVER, the coder
+        lt.svd_decode(lt.svd_encode(images[0], device="cuda", **kw), device="cuda")
+    for color_space in ("RGB", "YCbCr"):
+        for q in (10, 50):
+            kw = dict(quality=q, color_space=color_space)
+            enc_ms, dec_ms, raw, aligned, unbiased, worst = [], [], [], [], [], []
+            for i, img in enumerate(images):
+                t_enc, s_card = best_s(lambda: lt.svd_encode(img, device="cuda", **kw), reps=1)
+                t_dec, d_card = best_s(lambda: lt.svd_decode(s_card, device="cuda"), reps=1)
+                enc_ms.append(t_enc * 1e3)
+                dec_ms.append(t_dec * 1e3)
+                s_cpu = lt.svd_encode(img, device="cpu", **kw)
+                d_cpu = lt.svd_decode(s_cpu, device="cpu")
+                close_pixels(lt.svd_decode(s_card, device="cpu"), d_card, f"SVD {color_space} q{q} image {i} card stream")
+                close_pixels(lt.svd_decode(s_cpu, device="cuda"), d_cpu, f"SVD {color_space} q{q} image {i} CPU stream")
+                with cpu_signs(torch, msvd, "svd_balanced_factors", align_svd, worst):
+                    s_aligned = lt.svd_encode(img, device="cuda", **kw)
+                p_cpu = float(per_image_psnr(img, d_cpu))
+                raw.append(float(per_image_psnr(img, d_card)) - p_cpu)
+                aligned.append(float(per_image_psnr(img, lt.svd_decode(s_aligned, device="cuda"))) - p_cpu)
+                with debiased(msvd):
+                    unbiased.append(float(per_image_psnr(img, lt.svd_decode(s_card, device="cuda")))
+                                    - float(per_image_psnr(img, lt.svd_decode(s_cpu, device="cuda"))))
+            cos, gap = min(w[0] for w in worst), max(w[1] for w in worst)
+            flipped, components = sum(w[2] for w in worst), sum(w[3] for w in worst)
+            lead_card, lead_cpu = sum(w[4] for w in worst), sum(w[5] for w in worst)
+            check(gap < 1e-3, f"SVD {color_space} q{q}: card U V^T off the CPU's by {gap} (relative)")
+            check(max(abs(d) for d in aligned) < 0.1, f"SVD {color_space} q{q}: with the CPU's signs the card's PSNR is "
+                  f"off the CPU's by {aligned} dB")
+            check(min(raw) >= -RAW_GAP_DB, f"SVD {color_space} q{q}: the card's own streams' PSNR is off the "
+                  f"CPU's by {raw} dB")
+            print(f"svd [{label}] {color_space} q{q}, 8 x 512x768: encode {np.median(enc_ms):.2f} ms per image (median; "
+                  f"min {min(enc_ms):.2f}, max {max(enc_ms):.2f}), decode {np.median(dec_ms):.2f} ms; cross-decode ok; "
+                  f"U V^T within {gap:.3g} of the CPU's (relative), factors' least |cos| {cos:.6f}; card - CPU "
+                  f"PSNR with the CPU's signs max |d| "
+                  f"{max(abs(d) for d in aligned):.6f} dB, with the solvers' own signs {min(raw):+.4f}..{max(raw):+.4f} "
+                  f"dB (mean {np.mean(raw):+.4f}), decoded debiased max |d| {max(abs(d) for d in unbiased):.6f} dB "
+                  f"(mean {np.mean(unbiased):+.4f}); card signs differ in {flipped} of {components} components, "
+                  f"leading component negative in {lead_card} of {len(worst)} factorizations on the card, "
+                  f"{lead_cpu} on the CPU", flush=True)
+
+
+def phase_hosvd_tt(torch, lt, img: np.ndarray, label: str) -> None:
+    """Phase 11, HOSVD at com_ratio 50, patch-HOSVD with its SSIM rank search
+    at bpp 0.5 (8x8 patches, one feasible r1) and at bpp 1 (16x16 patches,
+    11), and TT on one 512x768 image, card against CPU. The card's own PSNR
+    is at most RAW_GAP_DB below the CPU's; the gap with both decoded
+    `debiased` is printed."""
+    from lrf_tpu_torch.models import hosvd as mhosvd
+
+    lt.hosvd_decode(lt.hosvd_encode(img, com_ratio=50, device="cuda"), device="cuda")  # warm-up
+    for name, encode, decode, kw in (
+        ("hosvd", lt.hosvd_encode, lt.hosvd_decode, dict(com_ratio=50)),
+        ("patch hosvd", lt.patch_hosvd_encode, lt.patch_hosvd_decode, dict(bpp=0.5)),
+        ("patch hosvd", lt.patch_hosvd_encode, lt.patch_hosvd_decode, dict(bpp=1.0, patch_size=(16, 16))),
+    ):
+        t_enc, d_card = best_s(lambda: encode(img, device="cuda", **kw), reps=1)
+        t_dec, x_card = best_s(lambda: decode(d_card, device="cuda"), reps=1)
+        d_cpu = encode(img, device="cpu", **kw)
+        x_cpu = decode(d_cpu, device="cpu")
+        ranks_card = [f[0].shape[-1] for f in d_card["factors"]]
+        ranks_cpu = [f[0].shape[-1] for f in d_cpu["factors"]]
+        close_pixels(decode(d_card, device="cpu"), x_card, f"{name} {kw} card dict")
+        close_pixels(decode(d_cpu, device="cuda"), x_cpu, f"{name} {kw} CPU dict")
+        worst = []
+        with cpu_signs(torch, mhosvd, "hosvd", align_hosvd, worst):
+            # the CPU's ranks given, so that the aligned run skips the search
+            fixed = dict(kw, rank=tuple(ranks_cpu), bpp=None) if name == "patch hosvd" else kw
+            x_al = decode(encode(img, device="cuda", **fixed), device="cuda")
+        p_cpu = float(per_image_psnr(img, x_cpu))
+        d_raw = float(per_image_psnr(img, x_card)) - p_cpu
+        d_al = float(per_image_psnr(img, x_al)) - p_cpu
+        with debiased(mhosvd):
+            d_unb = (float(per_image_psnr(img, decode(d_card, device="cuda")))
+                     - float(per_image_psnr(img, decode(d_cpu, device="cuda"))))
+        rank_note = ""
+        if name == "patch hosvd":
+            ps = kw.get("patch_size", (8, 8))
+            com_ratio = 8 * img.dtype.itemsize * img.shape[0] / kw["bpp"]
+            xf = mhosvd._to_unit_float(torch.from_numpy(img).cuda())
+            search_s, (rank, scored, score) = best_s(lambda: mhosvd._optimal_rank(xf, com_ratio, ps), reps=1)
+            _, scored_cpu, score_cpu = mhosvd._optimal_rank(mhosvd._to_unit_float(torch.from_numpy(img)), com_ratio, ps)
+            check(list(rank) == ranks_card, f"search rank {rank} is not the encode's {ranks_card}")
+            check(scored == scored_cpu, f"{name} {kw}: {scored} candidates scored on the card, {scored_cpu} on the CPU")
+            held = "the same rank"
+            if ranks_card != ranks_cpu:  # a near-tie of the SSIM scores may pick another rank
+                check(abs(score - score_cpu) <= 1e-5, f"{name} {kw}: rank {ranks_card} on the card, {ranks_cpu} on "
+                      f"the CPU, best SSIM {score} against {score_cpu}")
+                held = "another rank, best SSIM within 1e-5"
+            rank_note = (f"; the rank search scored {scored} candidates in {search_s * 1e3:.1f} ms (one SSIM read "
+                         f"each), best SSIM {score:.7f} (CPU {score_cpu:.7f}): {held}")
+        else:
+            check(ranks_card == ranks_cpu, f"{name}: rank {ranks_card} on the card, {ranks_cpu} on the CPU")
+        cos, gap = min(c for c, _ in worst), max(g for _, g in worst)
+        check(gap < 1e-3, f"{name} {kw}: card reconstruction off the CPU's by {gap} (relative)")
+        check(abs(d_al) < 0.1, f"{name} {kw}: with the CPU's signs the card's PSNR is off the CPU's by {d_al} dB")
+        check(d_raw >= -RAW_GAP_DB, f"{name} {kw}: the card's own PSNR is off the CPU's by {d_raw} dB")
+        print(f"{name} [{label}] {kw}: ranks {ranks_card} (CPU {ranks_cpu}); encode {t_enc * 1e3:.2f} ms, decode "
+              f"{t_dec * 1e3:.2f} ms; PSNR {p_cpu + d_raw:.4f} dB on the card, {p_cpu:.4f} on the CPU; with the CPU's "
+              f"signs {d_al:+.6f} dB; decoded debiased {d_unb:+.6f} dB; reconstruction within {gap:.3g} of the "
+              f"CPU's (relative), factors' least |cos| {cos:.6f}{rank_note}", flush=True)
+
+    def tt_error(x):
+        rec = lt.contract_tt(lt.ttd(x, (3, 48)))
+        return float(torch.linalg.vector_norm(rec - x) / torch.linalg.vector_norm(x))
+
+    x = torch.from_numpy(img.astype(np.float32) / 255.0)
+    xc = x.cuda()
+    err_card, err_cpu = tt_error(xc), tt_error(x)
+    tt_ms = cuda_ms(lambda: lt.contract_tt(lt.ttd(xc, (3, 48))), 3)
+    check(abs(err_card - err_cpu) < 1e-4, f"tt: relative error {err_card} on the card, {err_cpu} on the CPU")
+    print(f"tt [{label}] (3, 512, 768) at ranks (3, 48): relative error {err_card:.7f} on the card, "
+          f"{err_cpu:.7f} on the CPU; ttd + contract_tt {tt_ms:.3f} device ms", flush=True)
+
+
+def phase_modules(torch, lt, bk, img: np.ndarray, label: str) -> None:
+    """Phase 11, the module classes: `QMF.decompose` and `qmf_decompose_cuda`
+    on one image's Y stack run the kernel `qmf_decompose` runs, once each,
+    with the same bits; `QMF(verbose=True)` runs it once per sweep (10), with
+    the same bits; `HOSVD` and `SVDInit` run."""
+    import io
+    from lrf_tpu_torch.ops import bcd as bcd_mod
+    from lrf_tpu_torch.ops import color, pad, patch
+
+    x = torch.from_numpy(img).cuda()
+    y = patch.patchify(pad.pad_image(color.rgb_to_ycbcr(x)[0:1], (8, 8)), (8, 8))[None].contiguous()
+    check(tuple(y.shape) == (1, 6144, 64), f"Y stack {tuple(y.shape)}")
+    want = bcd_mod.qmf_decompose(y, 6, bounds=BOUNDS)
+    printed = io.StringIO()
+    for name, fn, sweeps in (
+        ("QMF.decompose", lambda: lt.QMF(rank=6, bounds=BOUNDS).decompose(y), 1),
+        ("qmf_decompose_cuda", lambda: lt.qmf_decompose_cuda(y, 6, bounds=BOUNDS), 1),
+        ("QMF(verbose=True).decompose", lambda: lt.QMF(rank=6, bounds=BOUNDS, verbose=True).decompose(y), 10),
+    ):
+        for k in bk.KERNEL.counts:
+            bk.KERNEL.counts[k] = 0
+        with contextlib.redirect_stdout(printed):
+            got = fn()
+        launches = dict(bk.KERNEL.counts)
+        check(launches == only(bk, bcd_cluster=sweeps), f"{name}: launched {launches}, expected bcd_cluster {sweeps}x")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{name} differs from qmf_decompose")
+    check(printed.getvalue().count("loss =") == 10, f"QMF(verbose=True) printed {printed.getvalue()!r}")
+    init = lt.SVDInit(rank=6, bounds=BOUNDS)(y)
+    check(all(torch.equal(a, b) for a, b in zip(init, bcd_mod.svd_init(y, 6, bounds=BOUNDS))), "SVDInit != svd_init")
+    xf = x.to(torch.float32) / 255.0
+    rec = lt.HOSVD(rank=(3, 64, 64))(xf)
+    rel = float(torch.linalg.vector_norm(rec - xf) / torch.linalg.vector_norm(xf))
+    check(tuple(rec.shape) == tuple(xf.shape) and 0 < rel < 0.5, f"HOSVD: {tuple(rec.shape)}, relative error {rel}")
+    print(f"modules [{label}]: QMF(rank=6).decompose and qmf_decompose_cuda on Y (1, 6144, 64): one bcd_cluster "
+          f"launch each, QMF(verbose=True) one per sweep (10), bits equal to qmf_decompose; SVDInit equal to "
+          f"svd_init; HOSVD (3, 64, 64) relative error "
+          f"{rel:.6f}", flush=True)
+
+
+def phase_jacobi(torch, lt, seed: int, images: np.ndarray, label: str) -> None:
+    """Phase 11, the Jacobi eigensolver on the 192 bench Grams (Y of 64
+    images, then their Cb and Cr) against `torch.linalg.eigh`: eigenvalues,
+    leading eigenvectors, device ms (CUDA events) and device kernels
+    launched (`torch.profiler`); then per-image PSNR of Jacobi-init encodes
+    against the default at q10 and q40 on 8 images. Each Gram's eigenvalues
+    must agree within 1e-4 of its largest, and Jacobi's 6 leading pairs be
+    eigenpairs to that precision (near-equal eigenvalues make single
+    eigenvectors ill-posed, so their |cos| against eigh's is printed, not
+    held)."""
+    from lrf_tpu_torch.ops import color, pad, patch, resample, svd
+    from lrf_tpu_torch.ops.jacobi import jacobi_eigh
+
+    x = torch.from_numpy(load_images(seed)).cuda()
+    stacks = [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8))
+              for c in resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))]
+    g = torch.cat([svd.gram(s) for s in (stacks[0], torch.cat(stacks[1:], dim=0))], dim=0)
+    check(tuple(g.shape) == (192, 64, 64), f"Grams {tuple(g.shape)}")
+    ev_l, vec_l = torch.linalg.eigh(g)
+    ev_j, vec_j = jacobi_eigh(g)
+    top = ev_l.abs().amax(dim=-1)  # per Gram
+    ev_err = float(((ev_j - ev_l).abs().amax(dim=-1) / top).max())
+
+    def residual(vec, ev):  # of the 6 leading pairs (the q10 Y rank), per Gram, over its largest eigenvalue
+        v, e = vec[..., -6:], ev[..., -6:]
+        return float((torch.linalg.vector_norm(g @ v - v * e[..., None, :], dim=-2).amax(dim=-1) / top).max())
+
+    res_j, res_l = residual(vec_j, ev_j), residual(vec_l, ev_l)
+    cos = (vec_j[..., -6:] * vec_l[..., -6:]).sum(-2).abs()
+    check(ev_err < 1e-4, f"jacobi eigenvalues off eigh's by {ev_err} of the largest")
+    check(res_j < 1e-4, f"jacobi's leading pairs are not eigenpairs: residual {res_j} of the largest eigenvalue")
+    jac_ms = cuda_ms(lambda: jacobi_eigh(g), 3)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(g), 3)
+    jac_k = device_kernels(torch, lambda: jacobi_eigh(g))
+    eigh_k = device_kernels(torch, lambda: torch.linalg.eigh(g))
+    print(f"jacobi [{label}]: 192 bench Grams 64x64: eigenvalues within {ev_err:.3g} of each Gram's largest of "
+          f"eigh's; leading 6 pairs' residual {res_j:.3g} (eigh {res_l:.3g}), eigenvectors' |cos| against eigh's "
+          f">= {float(cos.min()):.7f}; jacobi_eigh {jac_ms:.3f} device ms, "
+          f"{len(jac_k)} device kernels; torch.linalg.eigh {eigh_ms:.3f} device ms, {len(eigh_k)} device kernels",
+          flush=True)
+    for q in (10, 40):
+        d = []
+        for img in images:
+            p_def = float(per_image_psnr(img, lt.qmf_decode(lt.qmf_encode(img, quality=q, device="cuda"), device="cuda")))
+            s_jac = lt.qmf_encode(img, quality=q, device="cuda", init_method="jacobi")
+            p_jac = float(per_image_psnr(img, lt.qmf_decode(s_jac, device="cuda")))
+            check(np.isfinite(p_jac) and p_jac > 15, f"jacobi-init q{q} PSNR {p_jac}")
+            d.append(p_jac - p_def)
+        print(f"jacobi [{label}] q{q}: Jacobi-init encode PSNR - default PSNR over 8 x 512x768: mean {np.mean(d):+.4f} "
+              f"dB, min {min(d):+.4f}, max {max(d):+.4f}", flush=True)
+
+
+def phase_secondary(torch, lt, bk, seed: int, label: str) -> None:
+    """Phase 11: the CLI, the SVD and HOSVD codecs, TT, the module classes
+    and the Jacobi eigensolver at the bench image size."""
+    import tempfile
+
+    images = load_images(seed, count=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(torch, lt, bk, images[0], label, tmp)
+    phase_svd_codec(torch, lt, images, label)
+    phase_hosvd_tt(torch, lt, images[1], label)
+    phase_modules(torch, lt, bk, images[0], label)
+    phase_jacobi(torch, lt, seed, images, label)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1255,6 +1687,9 @@ def main() -> int:
     if 10 in phases:
         paths = phase_eval(torch, lt, bk, args.seed, label, main_run)
         lap(10)
+    if 11 in phases:
+        phase_secondary(torch, lt, bk, args.seed, label)
+        lap(11)
     if phases != set(OPTIONAL_PHASES):
         print(f"total: {time.perf_counter() - t_start:.1f} s; partial run (phases 1, 2, 4 and {sorted(phases)}): "
               f"no result lines")

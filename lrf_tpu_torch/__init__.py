@@ -8,13 +8,17 @@ everything else is PyTorch. Entry points take `device=` and run on `"cuda"` unle
 the caller asks for `"cpu"`; the batched ones also take a device mesh
 (`make_mesh`), and `distributed_encode` spreads a dataset over processes.
 Streams are byte-format compatible with `lrf_tpu` and decode in either
-package.
+package. The namespace is flat, as `lrf_tpu`'s is: every op, codec and
+util of `lrf_tpu_torch.ops`, `.models` and `.utils`, and the batched,
+mesh and multi-process entry points of `.parallel`. The command line is
+`python -m lrf_tpu_torch` (`lrf_tpu_torch/cli.py`).
 
 This package imports neither JAX nor `lrf_tpu`.
 """
 
-from lrf_tpu_torch.models.container import get_fiber_coder, set_fiber_coder
-from lrf_tpu_torch.models.qmf import qmf_decode, qmf_encode, qmf_rank
+from lrf_tpu_torch import models, ops, utils
+from lrf_tpu_torch.ops import *  # noqa: F401,F403
+from lrf_tpu_torch.models import *  # noqa: F401,F403
 from lrf_tpu_torch.parallel.decode import sharded_qmf_decode_batch, sharded_qmf_decode_batches
 from lrf_tpu_torch.parallel.distributed import (
     allgather_bytes,
@@ -31,24 +35,14 @@ from lrf_tpu_torch.parallel.encode import (
     sharded_qmf_encode_batches,
 )
 from lrf_tpu_torch.parallel.mesh import Mesh, make_mesh
-from lrf_tpu_torch.utils.eval import eval_compression, read_image
-from lrf_tpu_torch.utils.metrics import (
-    bits_per_pixel,
-    compression_ratio,
-    get_memory_usage,
-    mae,
-    mse,
-    psnr,
-    relative_error,
-    ssim,
-)
-from lrf_tpu_torch.utils.profiling import annotate, device_benchmark, trace
-from lrf_tpu_torch.utils.transfer import state_from_numpy, to_host, tree_to_host
+from lrf_tpu_torch.utils import *  # noqa: F401,F403
 
-__all__ = [
-    "qmf_encode",
-    "qmf_decode",
-    "qmf_rank",
+# `relative_error` is the metric of `utils` (over the last three dims), as
+# in `lrf_tpu`, whose star import of `utils` comes last.
+__all__ = list(dict.fromkeys([
+    *ops.__all__,
+    *models.__all__,
+    *utils.__all__,
     "sharded_qmf_encode_batch",
     "sharded_qmf_encode_batches",
     "sharded_qmf_decode_batch",
@@ -63,24 +57,6 @@ __all__ = [
     "shard_range",
     "allgather_bytes",
     "distributed_encode",
-    "set_fiber_coder",
-    "get_fiber_coder",
-    "mae",
-    "mse",
-    "relative_error",
-    "psnr",
-    "ssim",
-    "get_memory_usage",
-    "compression_ratio",
-    "bits_per_pixel",
-    "eval_compression",
-    "read_image",
-    "trace",
-    "annotate",
-    "device_benchmark",
-    "state_from_numpy",
-    "to_host",
-    "tree_to_host",
-]
+]))
 
 __version__ = "0.1.0"

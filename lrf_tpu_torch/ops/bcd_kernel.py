@@ -22,6 +22,10 @@ patch stacks and returns integer-valued float32 `(u, v)`:
 - on CPU tensors it runs `bcd_reference`, the plain PyTorch version;
 - anything else raises. There is no fallback from one to the other.
 
+`qmf_decompose_cuda` is the SVD init followed by `bcd`, the counterpart of
+`lrf_tpu.ops.bcd_pallas.qmf_decompose_pallas`. `lrf_tpu_torch.ops` exports
+`bcd` as `bcd_cuda` (its name `bcd` is the solver's module there).
+
 The kernel libraries are compiled with `nvcc` for `sm_90a` at first use into
 `lrf_tpu_torch/_build/` (one nvcc per source, started together) and loaded
 with ctypes; importing this module needs neither `nvcc` nor a GPU.
@@ -44,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from lrf_tpu_torch.ops.bcd import bcd_sweep, make_project, update_columns
+from lrf_tpu_torch.ops.bcd import bcd_sweep, make_project, svd_init, update_columns
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -539,3 +543,19 @@ def bcd(
         v.copy_(v0)
         KERNEL.launch(x, u, v, num_iters, lo, hi)
     return u, v
+
+
+def qmf_decompose_cuda(
+    x: torch.Tensor,
+    rank: int,
+    num_iters: int = 10,
+    bounds: tuple[float, float] = (-16, 15),
+    init_method: str = "gram",
+):
+    """SVD init, then `bcd`: the `factor=(0, 1)` path of
+    `lrf_tpu_torch.ops.bcd.qmf_decompose` on `(B, M, N)` batches. Returns
+    `(u, v, w)`."""
+    x = x.to(torch.float32).contiguous()
+    u0, v0, w = svd_init(x, rank, method=init_method, bounds=bounds)
+    u, v = bcd(x, u0, v0, num_iters=num_iters, bounds=bounds)
+    return u, v, w

@@ -8,13 +8,14 @@ PyTorch port of `lrf_tpu/ops/svd.py`:
 - `method="randomized"`: the randomized Gram range-finder of
   `randomized_truncated_svd` (the opt-in `init="fast"`), which replaces the
   N x N eigh with three K x K ones, K = rank + 10;
+- `method="jacobi"`: the Gram path with the batched parallel Jacobi
+  eigensolver of `lrf_tpu_torch.ops.jacobi` in place of
+  `torch.linalg.eigh` (opt-in, as in the JAX package);
 - `method="svd"`: `torch.linalg.svd`.
 
-The Jacobi eigensolver is not ported yet (ROADMAP queue 1, item 4).
-
 `shared_truncated_svd` takes the shared column-Gram eigh for every method,
-as the JAX package does: there the method only picks the eigen-solver, and
-"jacobi" is the one other solver.
+as the JAX package does: there the method only picks the eigen-solver,
+`torch.linalg.eigh` or, for "jacobi", `jacobi_eigh`.
 
 Each method is split into a Gram half (`gram`, `top_pairs_from_gram`) and
 a row-local half (`left_factor`), so a caller that holds X in row shards
@@ -26,15 +27,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_NOT_PORTED = {"jacobi": "the batched Jacobi eigensolver (ROADMAP queue 1, item 4)"}
-_METHODS = ("gram", "randomized", "svd")
+from lrf_tpu_torch.ops.jacobi import jacobi_eigh
+
+_METHODS = ("gram", "jacobi", "randomized", "svd")
 
 
 def _check_method(method: str) -> None:
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"method={method!r} is {_NOT_PORTED[method]}, not ported yet")
     if method not in _METHODS:
         raise ValueError(f"unknown SVD method {method!r}; one of {_METHODS}")
+
+
+def _gram_eig(g: torch.Tensor, method: str):
+    """Ascending eigendecomposition of a batched Gram: `torch.linalg.eigh`,
+    or `jacobi_eigh` for "jacobi"."""
+    return jacobi_eigh(g) if method == "jacobi" else torch.linalg.eigh(g)
 
 
 def _tiny_root(dtype) -> float:
@@ -88,12 +94,12 @@ def _randomized_from_gram(g: torch.Tensor, r: int, oversample: int = 10, seed: i
 
 def top_pairs_from_gram(g: torch.Tensor, r: int, method: str = "gram"):
     """`(s, v)`: top `r` singular values and right singular vectors of an X
-    whose column Gram is `g`, by `method` ("gram" or "randomized")."""
+    whose column Gram is `g`, by `method` ("gram", "jacobi" or "randomized")."""
     if method == "randomized":
         return _randomized_from_gram(g, r)
-    if method != "gram":
-        raise ValueError(f"top_pairs_from_gram takes 'gram' or 'randomized', not {method!r}")
-    return _top_from_eigh(*torch.linalg.eigh(g), r)
+    if method not in ("gram", "jacobi"):
+        raise ValueError(f"top_pairs_from_gram takes 'gram', 'jacobi' or 'randomized', not {method!r}")
+    return _top_from_eigh(*_gram_eig(g, method), r)
 
 
 def randomized_truncated_svd(x: torch.Tensor, rank: int, oversample: int = 10, seed: int = 0):
@@ -123,7 +129,7 @@ def truncated_svd(x: torch.Tensor, rank: int, method: str = "gram"):
         s, v = top_pairs_from_gram(gram(x), r, method)
         return left_factor(x, s, v), s, v
     # Gram on the short (row) side: G = X X^T, V = X^T U / s.
-    s, u = _top_from_eigh(*torch.linalg.eigh(torch.matmul(x, x.transpose(-1, -2))), r)
+    s, u = _top_from_eigh(*_gram_eig(torch.matmul(x, x.transpose(-1, -2)), method), r)
     return u, s, left_factor(x.transpose(-1, -2), s, u)
 
 
@@ -133,23 +139,24 @@ def shared_truncated_svd(stacks, ranks, method: str = "gram"):
     `stacks`: `(B_i, M_i, N)` tensors sharing N. Their column Grams are all
     `(N, N)`, so one `eigh` over the concatenated Gram batch serves every
     stack. Returns a list of `(u, s, v)` like `truncated_svd`. Every method
-    takes this path (`"svd"` and `"randomized"` give what `"gram"` gives);
-    in the JAX package the method picks only the solver of the shared eigh,
-    and its one other solver, `"jacobi"`, is not ported.
+    takes this path, as in the JAX package, where the method picks only the
+    solver of the shared eigh: `"jacobi"` takes `jacobi_eigh`, and `"svd"`
+    and `"randomized"` give what `"gram"` gives.
     """
     _check_method(method)
-    pairs = shared_top_pairs([gram(x) for x in stacks], [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)])
+    ranks = [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)]
+    pairs = shared_top_pairs([gram(x) for x in stacks], ranks, method)
     return [(left_factor(x, s, v), s, v) for x, (s, v) in zip(stacks, pairs)]
 
 
-def shared_top_pairs(grams, ranks):
-    """`top_pairs_from_gram(g, r)` for several `(B_i, N, N)` Grams of one N,
-    through one batched eigh."""
+def shared_top_pairs(grams, ranks, method: str = "gram"):
+    """The top `r` pairs `(s, v)` of several `(B_i, N, N)` Grams of one N,
+    through one batched eigh (`jacobi_eigh` for "jacobi")."""
     n = grams[0].shape[-1]
     if any(g.shape[-1] != n for g in grams):
         raise ValueError("shared_truncated_svd needs stacks of one width N")
     flat = [g.reshape(-1, n, n) for g in grams]
-    evals, evecs = torch.linalg.eigh(torch.cat(flat, dim=0))
+    evals, evecs = _gram_eig(torch.cat(flat, dim=0), method)
     out = []
     offset = 0
     for g, f, r in zip(grams, flat, ranks):

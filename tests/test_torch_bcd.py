@@ -140,11 +140,16 @@ def test_shared_init_equals_per_stack_init():
 
 
 def test_unported_svd_methods_raise():
-    x = torch.zeros(1, 64, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svd.truncated_svd(x, 4, method="jacobi")
+    # every method of the JAX package is ported: "jacobi" gives the JAX
+    # package's method="jacobi" subspaces, and an unknown method raises
+    x = _low_rank_stacks(31)[0]
+    u, s, v = svd.truncated_svd(torch.from_numpy(x), 4, method="jacobi")
+    ju, js, jv = (np.asarray(a) for a in jsvd.truncated_svd(jnp.asarray(x), 4, method="jacobi"))
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-4)
+    for a, b in ((u.numpy(), ju), (v.numpy(), jv)):
+        np.testing.assert_allclose(np.abs(np.einsum("...nr,...nr->...r", a, b)), 1.0, atol=1e-3)
     with pytest.raises(ValueError, match="unknown SVD method"):
-        svd.truncated_svd(x, 4, method="qr")
+        svd.truncated_svd(torch.zeros(1, 64, 64), 4, method="qr")
 
 
 def test_wrapper_rejects_bad_shapes():
@@ -184,5 +189,12 @@ def test_shared_truncated_svd_methods_take_the_shared_eigh(method):
         for a, b in ((v.numpy(), np.asarray(jv)), (u.numpy(), np.asarray(ju))):
             cos = np.abs(np.einsum("...nr,...nr->...r", a, b))
             np.testing.assert_allclose(cos, 1.0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        svd.shared_truncated_svd(t_stacks, ranks, "jacobi")
+    # "jacobi" takes the shared Gram too, with the Jacobi eigensolver: the
+    # JAX package's method="jacobi" subspaces
+    jacobi = svd.shared_truncated_svd(t_stacks, ranks, "jacobi")
+    jax_jacobi = jsvd.shared_truncated_svd([jnp.asarray(x) for x in stacks], ranks, "jacobi")
+    for (u, s, v), (ju, js, jv) in zip(jacobi, jax_jacobi):
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-4)
+        for a, b in ((v.numpy(), np.asarray(jv)), (u.numpy(), np.asarray(ju))):
+            cos = np.abs(np.einsum("...nr,...nr->...r", a, b))
+            np.testing.assert_allclose(cos, 1.0, atol=1e-3)

@@ -32,6 +32,9 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
         "import lrf_tpu_torch.parallel.mesh, lrf_tpu_torch.parallel.distributed\n"
         "import lrf_tpu_torch.native.fibercodec, lrf_tpu_torch.ops.entropy\n"
         "import lrf_tpu_torch.utils.eval, lrf_tpu_torch.utils.profiling, lrf_tpu_torch.native.asan_check\n"
+        "import lrf_tpu_torch.cli, lrf_tpu_torch.models.svd, lrf_tpu_torch.models.hosvd, lrf_tpu_torch.models.pil\n"
+        "import lrf_tpu_torch.ops.jacobi, lrf_tpu_torch.ops.hosvd, lrf_tpu_torch.ops.tt, lrf_tpu_torch.ops.modules\n"
+        "import lrf_tpu_torch.utils.config, lrf_tpu_torch.__main__\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
         "print(bad)\n"
@@ -128,7 +131,8 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     "entry",
     [
         "qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "encode_batches", "decode_batches", "state",
-        "make_mesh", "mesh_of_cuda",
+        "make_mesh", "mesh_of_cuda", "svd_encode", "svd_decode", "hosvd_encode", "hosvd_decode",
+        "patch_hosvd_encode", "patch_hosvd_optimal_rank",
     ],
 )
 def test_default_device_raises_without_cuda(entry):
@@ -146,6 +150,12 @@ def test_default_device_raises_without_cuda(entry):
         "state": lambda: lrf_tpu_torch.state_from_numpy(np.zeros((1, 4, 2)), np.zeros((1, 4, 2)), device="cuda"),
         "make_mesh": lambda: lrf_tpu_torch.make_mesh(),
         "mesh_of_cuda": lambda: lrf_tpu_torch.make_mesh(data=2, devices=["cuda:0", "cuda:1"]),
+        "svd_encode": lambda: lrf_tpu_torch.svd_encode(img, quality=10),
+        "svd_decode": lambda: lrf_tpu_torch.svd_decode(lrf_tpu_torch.svd_encode(img, quality=10, device="cpu")),
+        "hosvd_encode": lambda: lrf_tpu_torch.hosvd_encode(img, com_ratio=10),
+        "hosvd_decode": lambda: lrf_tpu_torch.hosvd_decode(lrf_tpu_torch.hosvd_encode(img, rank=(3, 4, 4), device="cpu")),
+        "patch_hosvd_encode": lambda: lrf_tpu_torch.patch_hosvd_encode(img, bpp=1.0),
+        "patch_hosvd_optimal_rank": lambda: lrf_tpu_torch.patch_hosvd_optimal_rank(img, 10.0),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -15,7 +15,9 @@ from lrf_tpu.ops import pad as jpad
 from lrf_tpu.ops import patch as jpatch
 from lrf_tpu.ops.quantize import dtype_range as j_dtype_range, to_dtype as j_to_dtype
 from lrf_tpu.ops import resample as jres
-from lrf_tpu_torch.ops import color, pad, patch, quantize, resample
+from lrf_tpu_torch.ops import color, pad, patch, resample
+# `lrf_tpu_torch.ops.quantize` is the function there, as in `lrf_tpu.ops`
+from lrf_tpu_torch.ops.quantize import dtype_range, to_dtype
 
 RNG = np.random.default_rng(101)
 ATOL = 1e-4
@@ -95,11 +97,11 @@ def test_patch_round_trip_matches_jax_exactly(shape):
 def test_to_dtype_matches_jax_exactly(dtype):
     x = (RNG.standard_normal((4, 257)) * 200).astype(np.float32)
     x[0, :4] = [-0.5, 0.5, -1.999, 1.999]  # truncation toward zero
-    got = quantize.to_dtype(_t(x), dtype).numpy()
+    got = to_dtype(_t(x), dtype).numpy()
     want = np.asarray(j_to_dtype(jnp.asarray(x), dtype))
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    assert quantize.dtype_range(dtype) == tuple(j_dtype_range(dtype))
+    assert dtype_range(dtype) == tuple(j_dtype_range(dtype))
 
 
 @pytest.mark.parametrize("r,c,size", [(6, 1, (48, 64)), (3, 3, (64, 96)), (1, 1, (8, 8))])
@@ -135,4 +137,6 @@ def test_reference_aliases_and_exports():
     # every op name the port exports is one the JAX package exports too
     ported = [n for n in dir(tops) if not n.startswith("_") and callable(getattr(tops, n))]
     assert "patchify_uv" in ported and "depatchify_uv" in ported
-    assert [n for n in ported if not hasattr(lrf_tpu.ops, n)] == []
+    # but the kernel entry points, named for CUDA where the JAX package's are
+    # named for Pallas (`bcd_pallas`, `qmf_decompose_pallas`)
+    assert [n for n in ported if not hasattr(lrf_tpu.ops, n)] == ["bcd_cuda", "qmf_decompose_cuda"]
