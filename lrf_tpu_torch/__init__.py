@@ -11,7 +11,10 @@ Streams are byte-format compatible with `lrf_tpu` and decode in either
 package. The namespace is flat, as `lrf_tpu`'s is: every op, codec and
 util of `lrf_tpu_torch.ops`, `.models` and `.utils`, and the batched,
 mesh and multi-process entry points of `.parallel`. The command line is
-`python -m lrf_tpu_torch` (`lrf_tpu_torch/cli.py`).
+`python -m lrf_tpu_torch` (`lrf_tpu_torch/cli.py`); the rate-distortion
+sweeps and ablations are `lrf_tpu_torch.experiments` (`python -m
+lrf_tpu_torch.experiments`), and the codec's single encode step and a
+sharded dry run are `lrf_tpu_torch.entry`.
 
 This package imports neither JAX nor `lrf_tpu`.
 """

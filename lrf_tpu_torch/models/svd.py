@@ -10,11 +10,18 @@ The YCbCr branch is the JAX package's repair of the reference's broken one
 (a scalar rank per channel, one padded-size entry per channel); its
 no-patch decode restores the channel dim the reference's would drop.
 
-Singular-vector signs are the solver's (LAPACK on the CPU, cuSOLVER on the
-card), and one `(scale, min)` quantizes all of U, so a flipped component
-moves every quantized value: quantized streams need not equal the JAX
-package's byte for byte. Float-factor streams (`dtype=np.float32`) decode to
-the same pixels whatever the signs.
+One `(scale, min)` quantizes all of U with a truncating cast, so each
+component's sign moves every quantized value, and the solvers pick signs by
+their own rules (LAPACK on the CPU, cuSOLVER on the card). The encoder
+therefore signs the leading component by a rule (`_lead_sign`): its u
+column sums to at most 0 where the matrix is tall (M >= N: the patch
+stacks of a photograph) and to at least 0 where it is wide (M < N: the
+no-patch channels of a landscape image), the side LAPACK, and so the JAX
+package on the CPU, returns on the photographs measured. The trailing
+components keep the solver's signs, so quantized streams still need not
+equal the JAX package's byte for byte.
+Float-factor streams (`dtype=np.float32`) decode to the same pixels
+whatever the signs.
 """
 
 from __future__ import annotations
@@ -57,11 +64,24 @@ def svd_compression_ratio(size: tuple[int, int], rank: int) -> float:
     return (num_rows * num_cols) / (rank * (num_rows + num_cols))
 
 
+def _lead_sign(u: torch.Tensor, v: torch.Tensor):
+    """`(u, v)` with the leading component of each factorization negated,
+    in both factors, where its u column sums to the other side from
+    LAPACK's: above 0 for a tall X (M >= N), below 0 for a wide one. `u v^T`
+    is unchanged."""
+    lead = u[..., 0].sum(-1)
+    flip = lead > 0 if u.shape[-2] >= v.shape[-2] else lead < 0
+    sign = torch.where(flip, -1.0, 1.0).to(u.dtype)
+    scale = torch.ones(u.shape[:-2] + (1, u.shape[-1]), dtype=u.dtype, device=u.device)
+    scale[..., 0, 0] = sign
+    return u * scale, v * scale
+
+
 def _encode_channel(x: torch.Tensor, rank: int, patch: bool, patch_size, qdtype: Optional[np.dtype]):
     """Host `(u, v)` and their `[scale, min]` pairs (None for float factors)."""
     x = x.to(torch.float32)
     xm = patchify(pad_image(x, patch_size), patch_size) if patch else x
-    u, v = svd_balanced_factors(xm, rank, method="svd")
+    u, v = _lead_sign(*svd_balanced_factors(xm, rank, method="svd"))
     if qdtype is None:
         return to_host(u), to_host(v), None, None
     qu, su, mu = quantize(u, qdtype)

@@ -3,8 +3,9 @@
 - `lrf_tpu_torch` and `chip_smoke.py` import neither JAX nor `lrf_tpu`,
   and the port's native coder never loads the JAX package's library.
 - Entry points run on the GPU unless asked for the CPU: with no CUDA they
-  raise instead of carrying on on the CPU; so does `make_mesh()`, whose
-  default is every CUDA device.
+  raise instead of carrying on on the CPU (the codecs, `LOESS`, the sweeps,
+  `entry` and the dry run); so does `make_mesh()`, whose default is every
+  CUDA device.
 - The kernel wrapper on CPU tensors runs the plain version and launches
   nothing.
 """
@@ -35,6 +36,10 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
         "import lrf_tpu_torch.cli, lrf_tpu_torch.models.svd, lrf_tpu_torch.models.hosvd, lrf_tpu_torch.models.pil\n"
         "import lrf_tpu_torch.ops.jacobi, lrf_tpu_torch.ops.hosvd, lrf_tpu_torch.ops.tt, lrf_tpu_torch.ops.modules\n"
         "import lrf_tpu_torch.utils.config, lrf_tpu_torch.__main__\n"
+        "import lrf_tpu_torch.utils.plotting, lrf_tpu_torch.utils.viz, lrf_tpu_torch.entry\n"
+        "import lrf_tpu_torch.experiments.common, lrf_tpu_torch.experiments.drivers\n"
+        "import lrf_tpu_torch.experiments.aggregate, lrf_tpu_torch.experiments.plots\n"
+        "import lrf_tpu_torch.experiments.__main__\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
         "print(bad)\n"
@@ -132,12 +137,16 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     [
         "qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "encode_batches", "decode_batches", "state",
         "make_mesh", "mesh_of_cuda", "svd_encode", "svd_decode", "hosvd_encode", "hosvd_decode",
-        "patch_hosvd_encode", "patch_hosvd_optimal_rank",
+        "patch_hosvd_encode", "patch_hosvd_optimal_rank", "loess", "sweep_qmf", "sweep_jpeg", "entry",
+        "dryrun_multichip",
     ],
 )
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the refusal path needs a host without it")
+    from lrf_tpu_torch import entry as step
+    from lrf_tpu_torch.experiments import common as sweeps
+
     img = np.zeros((3, 16, 16), np.uint8)
     stream = lrf_tpu_torch.qmf_encode(img, quality=10, device="cpu")
     calls = {
@@ -156,6 +165,11 @@ def test_default_device_raises_without_cuda(entry):
         "hosvd_decode": lambda: lrf_tpu_torch.hosvd_decode(lrf_tpu_torch.hosvd_encode(img, rank=(3, 4, 4), device="cpu")),
         "patch_hosvd_encode": lambda: lrf_tpu_torch.patch_hosvd_encode(img, bpp=1.0),
         "patch_hosvd_optimal_rank": lambda: lrf_tpu_torch.patch_hosvd_optimal_rank(img, 10.0),
+        "loess": lambda: lrf_tpu_torch.LOESS(frac=0.3).fit([0.0, 1.0], [0.0, 1.0]),
+        "sweep_qmf": lambda: sweeps.sweep_qmf(img, "x.png", qualities=[10.0]),
+        "sweep_jpeg": lambda: sweeps.sweep_jpeg(img, "x.png", qualities=[10]),
+        "entry": lambda: step.entry(),
+        "dryrun_multichip": lambda: step.dryrun_multichip(2),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

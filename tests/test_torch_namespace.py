@@ -4,12 +4,10 @@
 `__all__`: their star imports also carry submodule names (`color`, `bcd`,
 `modules`, `viz`, ...). So the names compared are the public ones whose
 objects are not modules. Every such name of the JAX package's four
-namespaces is in the port's, but two kinds:
-
-- the kernel entry points, which the port names for CUDA: `bcd_pallas`
-  and `qmf_decompose_pallas` are `bcd_cuda` and `qmf_decompose_cuda`;
-- the plotting and visualization helpers of `utils/plotting.py` and
-  `utils/viz.py`, which are not ported yet (ROADMAP queue 1).
+namespaces is in the port's, the kernel entry points under the names the
+port gives them for CUDA: `bcd_pallas` and `qmf_decompose_pallas` are
+`bcd_cuda` and `qmf_decompose_cuda`. No name is exempt (`NOT_PORTED` is
+empty): the plotting and visualization helpers are ported too.
 
 A failure prints the names still missing.
 """
@@ -22,7 +20,7 @@ import lrf_tpu
 import lrf_tpu_torch
 
 RENAMED = {"bcd_pallas": "bcd_cuda", "qmf_decompose_pallas": "qmf_decompose_cuda"}
-NOT_PORTED = {"LOESS", "Plot", "vis_image", "vis_image_batch", "vis_collage", "zscore_normalize", "minmax_normalize"}
+NOT_PORTED: set[str] = set()
 
 
 def _names(mod) -> set[str]:
