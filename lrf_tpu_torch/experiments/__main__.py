@@ -6,11 +6,16 @@
     python -m lrf_tpu_torch.experiments ablation_plot --results R.json --groupby bounds
     python -m lrf_tpu_torch.experiments collage --image experiments/data/local7/parrots_recon_a.png
     python -m lrf_tpu_torch.experiments aggregate --ours A.json --theirs B.json
+    python -m lrf_tpu_torch.experiments distributed_encode --data_dir experiments/data/local7 [--multihost]
+    python -m lrf_tpu_torch.experiments pipeline [--image experiments/data/demo/kodim01.png] [--quality 7]
 
 A sweep writes `{save_dir}/{prefix}_results.json` after every image and,
 run again, resumes where it stopped. Sweeps and the collage run on the
 card unless given `--device cpu`; the figures need matplotlib, pandas and
-seaborn.
+seaborn. So do the dataset encode (`distributed_encode`: every PNG of a
+directory to `<stem>.qmf`, over every local card and, with `--multihost`,
+every process) and the walkthrough (`pipeline`: every stage of the codec
+on one image, its figures drawn where matplotlib is installed).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import sys
 
 from lrf_tpu_torch.experiments import aggregate as agg
+from lrf_tpu_torch.experiments import distributed_encode, qmf_pipeline
 from lrf_tpu_torch.experiments.common import add_driver_args, dataset_images, resolve_args, run_over_dataset
 from lrf_tpu_torch.experiments.drivers import DRIVERS
 
@@ -52,6 +58,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--ours")
     p.add_argument("--theirs")
     p.add_argument("--out")
+    distributed_encode.add_args(sub.add_parser("distributed_encode", help="encode every PNG of a directory over "
+                                               "every local card (and process)"))
+    qmf_pipeline.add_args(sub.add_parser("pipeline", help="every stage of the codec on one image"))
     return ap
 
 
@@ -65,6 +74,10 @@ def main(argv=None) -> int:
         per_image = functools.partial(DRIVERS[args.command][0], device=args.device)
         run_over_dataset(args.data_dir, per_image, args.save_dir, args.prefix)
         return 0
+    if args.command == "distributed_encode":
+        return distributed_encode.run(args)
+    if args.command == "pipeline":
+        return qmf_pipeline.run(args)
     if args.command == "plot":
         from lrf_tpu_torch.experiments.plots import plot_comparison
 

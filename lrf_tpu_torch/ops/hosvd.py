@@ -5,10 +5,16 @@ PyTorch port of `lrf_tpu/ops/hosvd.py`: `unfold`, `mode_product` /
 then the core), their batched forms over a leading batch dim, and the
 rank-bound and feasible-range helpers of the codec's rank search.
 
-Per-mode singular vectors come from `lrf_tpu_torch.ops.svd.truncated_svd`:
-every unfolding is short x long, so it takes the eigh of the short-side
-Gram. Eigenvector signs are the solver's, so factors may differ from the
-JAX package's by the sign of a column; reconstructions do not.
+Per-mode singular vectors come from `truncated_svd`'s Gram path: every
+unfolding is short x long, so it takes the eigh of the short-side Gram,
+formed on the input's device. That eigh alone goes to the host:
+`lrf_tpu_torch.ops.svd._lapack_eigh`, LAPACK's `?syevd` through scipy,
+which is the JAX package's CPU `eigh`. The factors then take the JAX
+package's column signs, and the codecs' truncating quantizers, whose
+half-step bias follows the signs, give the JAX package's PSNR: with
+`torch.linalg.eigh` the patch codec read up to 2 dB apart on photographs.
+Where the two Grams' last bits flip LAPACK's choice, a column still takes
+the other sign; reconstructions never differ by more than rounding.
 
 The batched forms run the unbatched code with one leading batch dim
 (`nbatch=1` below) rather than through `torch.func.vmap`.
@@ -21,7 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from lrf_tpu_torch.ops.common import prod
-from lrf_tpu_torch.ops.svd import truncated_svd
+from lrf_tpu_torch.ops.svd import _gram_svd, _lapack_eigh
 
 __all__ = [
     "unfold",
@@ -142,7 +148,7 @@ def _hosvd(x: torch.Tensor, rank, nbatch: int = 0):
     for mode in range(nd):
         xm = _unfold(x, mode, nbatch)
         r = min(xm.shape[-2:]) if ranks[mode] is None else min(ranks[mode], *xm.shape[-2:])
-        u, _, _ = truncated_svd(xm, r)
+        u, _, _ = _gram_svd(xm, r, _lapack_eigh)
         factors.append(u)
     core = _multi_mode_product(x, factors, None, True, nbatch)
     return core, factors

@@ -17,6 +17,11 @@ PyTorch port of `lrf_tpu/ops/svd.py`:
 as the JAX package does: there the method only picks the eigen-solver,
 `torch.linalg.eigh` or, for "jacobi", `jacobi_eigh`.
 
+`_lapack_eigh` is the eigensolver of the HOSVD codecs' mode SVDs alone
+(`ops/hosvd.py`): LAPACK's `?syevd` through scipy, on the host. It gives
+the JAX package's eigenvector signs, which the codecs' truncating
+quantizers turn into PSNR; no other path takes it.
+
 Each method is split into a Gram half (`gram`, `top_pairs_from_gram`) and
 a row-local half (`left_factor`), so a caller that holds X in row shards
 can sum the shards' Grams and finish each shard on its own device.
@@ -25,6 +30,7 @@ can sum the shards' Grams and finish each shard on its own device.
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from lrf_tpu_torch.ops.jacobi import jacobi_eigh
@@ -41,6 +47,27 @@ def _gram_eig(g: torch.Tensor, method: str):
     """Ascending eigendecomposition of a batched Gram: `torch.linalg.eigh`,
     or `jacobi_eigh` for "jacobi"."""
     return jacobi_eigh(g) if method == "jacobi" else torch.linalg.eigh(g)
+
+
+def _lapack_eigh(g: torch.Tensor):
+    """Ascending eigendecomposition of a batched Gram by LAPACK's `?syevd`
+    (`scipy.linalg.eigh(driver="evd")`), one matrix at a time on the host in
+    the Gram's dtype; the result goes back to the Gram's device.
+
+    The JAX package's CPU `eigh` is this LAPACK routine, so the eigenvector
+    signs are the JAX package's wherever the two Grams' last bits do not
+    flip LAPACK's choice. `torch.linalg.eigh` takes another LAPACK's (or
+    cuSOLVER's) signs, and the HOSVD codecs' truncating quantizers turn
+    signs into PSNR: up to 2 dB apart on photographs at bpp 0.5.
+    """
+    host = g.detach().cpu().numpy()
+    flat = host.reshape(-1, *host.shape[-2:])
+    evals = np.empty(flat.shape[:-1], flat.dtype)
+    evecs = np.empty_like(flat)
+    for i, a in enumerate(flat):
+        evals[i], evecs[i] = scipy.linalg.eigh(a, driver="evd")
+    return (torch.from_numpy(evals.reshape(host.shape[:-1])).to(g.device),
+            torch.from_numpy(evecs.reshape(host.shape)).to(g.device))
 
 
 def _tiny_root(dtype) -> float:
@@ -125,11 +152,20 @@ def truncated_svd(x: torch.Tensor, rank: int, method: str = "gram"):
     if method == "svd":
         u, s, vh = torch.linalg.svd(x, full_matrices=False)
         return u[..., :, :r], s[..., :r], vh.transpose(-1, -2)[..., :, :r]
-    if n <= m:
-        s, v = top_pairs_from_gram(gram(x), r, method)
+    if method == "randomized" and n <= m:
+        s, v = _randomized_from_gram(gram(x), r)
+        return left_factor(x, s, v), s, v
+    return _gram_svd(x, r, lambda g: _gram_eig(g, method))
+
+
+def _gram_svd(x: torch.Tensor, r: int, eig):
+    """`truncated_svd`'s Gram path with the eigensolver `eig`: the eigh of
+    the short-side Gram, the long-side factor by one product."""
+    if x.shape[-1] <= x.shape[-2]:
+        s, v = _top_from_eigh(*eig(gram(x)), r)
         return left_factor(x, s, v), s, v
     # Gram on the short (row) side: G = X X^T, V = X^T U / s.
-    s, u = _top_from_eigh(*_gram_eig(torch.matmul(x, x.transpose(-1, -2)), method), r)
+    s, u = _top_from_eigh(*eig(torch.matmul(x, x.transpose(-1, -2))), r)
     return u, s, left_factor(x.transpose(-1, -2), s, u)
 
 

@@ -4,8 +4,8 @@
   and the port's native coder never loads the JAX package's library.
 - Entry points run on the GPU unless asked for the CPU: with no CUDA they
   raise instead of carrying on on the CPU (the codecs, `LOESS`, the sweeps,
-  `entry` and the dry run); so does `make_mesh()`, whose default is every
-  CUDA device.
+  `entry`, the dry run, the dataset encode and the walkthrough); so does
+  `make_mesh()`, whose default is every CUDA device.
 - The kernel wrapper on CPU tensors runs the plain version and launches
   nothing.
 """
@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax_and_no_lrf_tpu():
         "import lrf_tpu_torch.utils.plotting, lrf_tpu_torch.utils.viz, lrf_tpu_torch.entry\n"
         "import lrf_tpu_torch.experiments.common, lrf_tpu_torch.experiments.drivers\n"
         "import lrf_tpu_torch.experiments.aggregate, lrf_tpu_torch.experiments.plots\n"
-        "import lrf_tpu_torch.experiments.__main__\n"
+        "import lrf_tpu_torch.experiments.__main__, lrf_tpu_torch.experiments.distributed_encode\n"
+        "import lrf_tpu_torch.experiments.qmf_pipeline\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lrf_tpu'))]\n"
         "print(bad)\n"
@@ -138,7 +139,7 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         "qmf_encode", "qmf_decode", "encode_batch", "decode_batch", "encode_batches", "decode_batches", "state",
         "make_mesh", "mesh_of_cuda", "svd_encode", "svd_decode", "hosvd_encode", "hosvd_decode",
         "patch_hosvd_encode", "patch_hosvd_optimal_rank", "loess", "sweep_qmf", "sweep_jpeg", "entry",
-        "dryrun_multichip",
+        "dryrun_multichip", "distributed_encode", "pipeline",
     ],
 )
 def test_default_device_raises_without_cuda(entry):
@@ -146,6 +147,7 @@ def test_default_device_raises_without_cuda(entry):
         pytest.skip("this host has CUDA; the refusal path needs a host without it")
     from lrf_tpu_torch import entry as step
     from lrf_tpu_torch.experiments import common as sweeps
+    from lrf_tpu_torch.experiments import distributed_encode, qmf_pipeline
 
     img = np.zeros((3, 16, 16), np.uint8)
     stream = lrf_tpu_torch.qmf_encode(img, quality=10, device="cpu")
@@ -170,6 +172,10 @@ def test_default_device_raises_without_cuda(entry):
         "sweep_jpeg": lambda: sweeps.sweep_jpeg(img, "x.png", qualities=[10]),
         "entry": lambda: step.entry(),
         "dryrun_multichip": lambda: step.dryrun_multichip(2),
+        "distributed_encode": lambda: distributed_encode.main(["--data_dir", os.path.join(ROOT, "experiments", "data",
+                                                                                          "local7")]),
+        "pipeline": lambda: qmf_pipeline.main(["--image", os.path.join(ROOT, "experiments", "data", "demo",
+                                                                       "kodim01.png")]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

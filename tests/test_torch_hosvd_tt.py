@@ -8,6 +8,9 @@ package's, on the CPU.
   relative of the JAX package's reconstruction, and their factors are the
   JAX package's up to the sign of each column (|cos| within 1e-3), at ranks
   where the spectra are separated.
+- The HOSVD's mode eigensolver (`ops/svd.py::_lapack_eigh`) gives
+  `jnp.linalg.eigh`'s eigenvalues and eigenvector signs on one seeded Gram
+  of each n in (3, 8, 64, 192): both are LAPACK's `?syevd`.
 - Both HOSVD codecs: the same rank tuples (the patch codec's SSIM search
   included) and shapes, dicts of the same keys, types and dtypes; each
   package decodes the other's dict to the pixels the other decodes (at most
@@ -26,6 +29,7 @@ from lrf_tpu.ops.hosvd import hosvd as jhosvd
 from lrf_tpu.ops import tt as jtt
 from lrf_tpu_torch.ops.hosvd import hosvd as hosvd_fn
 from lrf_tpu_torch.ops import tt as ptt
+from lrf_tpu_torch.ops.svd import _lapack_eigh
 
 import torch_images
 
@@ -105,6 +109,22 @@ def test_hosvd_matches_jax(unit_crop, rank):
     assert _rel(rec_t.numpy(), rec_j) < 1e-4
     # the module class round-trips through the same functions
     np.testing.assert_array_equal(lrf_tpu_torch.HOSVD(rank)(torch.from_numpy(unit_crop)).numpy(), rec_t.numpy())
+
+
+@pytest.mark.parametrize("n", [3, 8, 64, 192])
+def test_lapack_eigh_signs_are_jax_eigh_signs(n):
+    # One seeded Gram, the same bits through both: the HOSVD's eigensolver
+    # must give jnp.linalg.eigh's eigenvalues and eigenvector signs.
+    rng = np.random.default_rng(100 + n)
+    x = rng.standard_normal((3, 2 * n + 5, n)).astype(np.float32)
+    g = np.einsum("bij,bik->bjk", x, x)
+    g = (g + g.transpose(0, 2, 1)) / np.float32(2)
+    w_t, v_t = _lapack_eigh(torch.from_numpy(g))
+    w_j, v_j = jnp.linalg.eigh(jnp.asarray(g))
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), rtol=1e-5, atol=1e-5 * float(np.abs(w_j).max()))
+    cos = (v_t.numpy().astype(np.float64) * np.asarray(v_j, np.float64)).sum(-2)
+    assert np.all(cos > 0.9), cos.min()
+    assert v_t.dtype == torch.float32 and tuple(v_t.shape) == g.shape
 
 
 def test_batched_hosvd_matches_jax(unit_crop):

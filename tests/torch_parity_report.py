@@ -11,11 +11,16 @@ tests use (their tests assert the bounds; this script reports the values):
   with its zlib coder);
 - bcd: from one JAX init, the share of factor entries the port's plain BCD
   shares with `lrf_tpu.ops.bcd` and with `bcd_pallas(interpret=True)`, and
-  the loss difference.
+  the loss difference;
+- hosvd: for each `experiments/data/local7` image (its top-left 512x768),
+  the PSNR gap (port - JAX) of `hosvd_encode` at com_ratio 50 and of
+  `patch_hosvd_encode` at bpp 0.5, each package decoding its own dict
+  (`tests/test_torch_hosvd_parity.py` holds the bounds).
 
 Not collected by pytest (the file name does not start with `test_`).
 """
 
+import glob
 import json
 import os
 import sys
@@ -87,6 +92,23 @@ def bcd_cases():
         print(json.dumps(out))
 
 
+def hosvd_cases():
+    def psnr(a, b):
+        mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+        return float(10 * np.log10(255.0**2 / mse))
+
+    for path in sorted(glob.glob(os.path.join(ROOT, "experiments/data/local7/*.png"))):
+        img = np.ascontiguousarray(np.asarray(Image.open(path).convert("RGB")).transpose(2, 0, 1)[:, :512, :768])
+        out = {"case": "hosvd", "image": os.path.basename(path), "size": list(img.shape)}
+        for codec, enc, dec, kw in (("hosvd", "hosvd_encode", "hosvd_decode", dict(com_ratio=50)),
+                                    ("patch_hosvd", "patch_hosvd_encode", "patch_hosvd_decode", dict(bpp=0.5))):
+            x_port = getattr(lrf_tpu_torch, dec)(getattr(lrf_tpu_torch, enc)(img, device="cpu", **kw), device="cpu")
+            x_jax = getattr(lrf_tpu, dec)(getattr(lrf_tpu, enc)(img, **kw))
+            out[f"{codec}_gap_db"] = psnr(img, x_port) - psnr(img, x_jax)
+        print(json.dumps(out))
+
+
 if __name__ == "__main__":
     codec_cases()
     bcd_cases()
+    hosvd_cases()
