@@ -99,29 +99,32 @@ Phases, each of which raises (exit code != 0) when a check fails:
    of pixels), the same ranks, reconstructions from the float factors within
    1e-3 (relative), and with the CPU's signs PSNR within 0.1 dB (the codecs'
    truncating quantizers are not sign-free, and the solvers pick signs by
-   their own rules); the card's own streams at most 2 dB below the CPU's (the
-   gap with the quantizer's bias taken out at decode is printed); TT of a (3, 512,
+   their own rules); the card's own streams within 0.01 dB of the CPU's (SVD,
+   which factors through the host's LAPACK on every device; how many streams
+   are byte-identical is printed) or 0.1 dB (HOSVD; the gap with the
+   quantizer's bias taken out at decode is printed); TT of a (3, 512,
    768) image, relative error within 1e-4 of the CPU's; `QMF.decompose` and
    `qmf_decompose_cuda` on one Y stack, one `bcd_cluster` launch each, and
    `QMF(verbose=True)` one per sweep, bits equal to `qmf_decompose`; `HOSVD` and
    `SVDInit`; `jacobi_eigh` on the 192 bench Grams against
    `torch.linalg.eigh` (eigenvalues, leading eigenvectors, device ms and
    device kernels of each), and Jacobi-init encodes against the default at
-   q10 and q40 on 8 images; after the SVD encoder's leading-sign rule the
-   card's leading side equals the CPU's in every factorization, and the
-   card - CPU gap of its own streams is printed beside its reading before
-   the rule; the HOSVD codecs' card - CPU gaps and encode ms beside their readings before the
-   mode eigh went to the host's LAPACK, and that eigh's ms apart;
+   q10 and q40 on 8 images; the SVD codec's card - CPU gap and encode ms
+   beside their readings through `torch.linalg.svd`; the HOSVD codecs' card
+   - CPU gaps and encode ms beside their readings before the mode eigh went
+   to the host's LAPACK, and that eigh's ms apart;
 12. the sweep layer (`lrf_tpu_torch.experiments`) at the sizes of the
-   repo's photographs: the comparison sweep over the 7 `local7` images
-   (every 4th QMF quality of linspace(0, 40, 80), every 3rd SVD quality of
-   linspace(0, 5, 30), every 5th JPEG quality of 0-74) through
+   repo's photographs: the codec's Y, Cb and Cr stacks of each `local7`
+   image built on the card and on the CPU, no entry apart; the comparison
+   sweep over the 7 `local7` images (every 4th QMF quality of linspace(0,
+   40, 80), every 3rd SVD quality of linspace(0, 5, 30), every 5th JPEG
+   quality of 0-74) through
    `run_over_dataset`, first over 3 images and then resumed over all 7
    (only the other 4 swept, the first rows untouched), rows of the JAX
    package's schema, each QMF encode launching the kernels its stacks
    plan; the port on this machine's CPU against the card on 2 images (QMF
    at 3 qualities: PSNR within 0.2 dB, bpp within 2%, SSIM within 5e-3;
-   JPEG equal; SVD leading sides equal, at most RAW_GAP_DB below), and the
+   JPEG equal; SVD PSNR within 0.01 dB), and the
    same QMF points from one X and one init (the CPU's) on both sides: at
    most 1 of 6 streams apart, each stack that parts doing so first at
    round() ties (the entries apart within 1e-4 of x.5 in float64), the
@@ -1346,41 +1349,26 @@ def debiased(mod):
         mod.np_dequantize = fn
 
 
-@contextlib.contextmanager
-def lead_signs(mod, out: list):
-    """Within the block, each factorization's leading-component side after
-    `mod._lead_sign` (the SVD codec's sign rule) goes to `out`: True where
-    its u column sums below 0."""
-    fn = mod._lead_sign
-
-    def wrapped(u, v):
-        u, v = fn(u, v)
-        out.extend(bool(b) for b in (u[..., 0].sum(-1) < 0).reshape(-1).tolist())
-        return u, v
-
-    mod._lead_sign = wrapped
-    try:
-        yield
-    finally:
-        mod._lead_sign = fn
+# Per phase-11 SVD setting, the card's encode ms per image (median of 8) and
+# the card - CPU PSNR of its own streams (mean, worst over the 8 bench
+# images), read while the codec factored through torch.linalg.svd
+# (cuSOLVER on the card, torch's LAPACK on the CPU) with a leading-sign
+# rule; NVIDIA H100 80GB HBM3, 700.00 W.
+SVD_BEFORE = {("RGB", 10): (9.65, -0.0004, -0.0352), ("RGB", 50): (17.92, +0.0217, -0.2549),
+              ("YCbCr", 10): (12.03, +0.0042, -0.0113), ("YCbCr", 50): (14.48, +0.0433, +0.0014)}
 
 
-# PR 9's card - CPU PSNR of the SVD codec's own streams on the 8 bench images
-# (mean, worst), before the encoder's leading-sign rule; NVIDIA H100 80GB
-# HBM3, 700.00 W.
-SVD_GAP_BEFORE_RULE = {("RGB", 10): (-0.4391, -1.0410), ("RGB", 50): (-0.7027, -1.3167),
-                       ("YCbCr", 10): (-0.2385, -0.4701), ("YCbCr", 50): (-0.8484, -1.6072)}
-
-
-# The card's own streams (the solvers' own signs) against the CPU's: PSNR at
-# most RAW_GAP_DB below the CPU stream's per image. On an H100 (700 W) the
-# largest drop read before this bound was set is 1.61 dB (SVD YCbCr q50); a
-# card stream that reads higher is no fault (patch-HOSVD at bpp 1 reads
-# 1.95 dB higher). The gap once `debiased` takes out the quantizer's bias is
-# printed, not held: the signs also move each factor's shared quantization
-# scale, which left one bench image 0.32 dB apart at SVD RGB q50 with the
-# bias gone.
-RAW_GAP_DB = 2.0
+# The card's own streams (no sign patched in) against the CPU's: the SVD
+# codec's PSNR within SVD_GAP_DB per image, the HOSVD codecs' within
+# HOSVD_GAP_DB. Both codecs factor through the host's LAPACK on every
+# device (`ops/svd.py::_lapack_svd`, `_lapack_eigh`) and quantize with a
+# tensor divisor, and the card's X is the CPU's, so the SVD streams are
+# predicted byte-identical. These replace a bound of 2 dB below the CPU
+# (RAW_GAP_DB), set while the card's solver picked its own signs; the
+# readings then were -0.2549 dB (SVD RGB q50, torch.linalg.svd) and -0.0029
+# / -0.0033 / -0.0282 dB (HOSVD), NVIDIA H100 80GB HBM3, 700.00 W.
+SVD_GAP_DB = 0.01
+HOSVD_GAP_DB = 0.1
 # Per phase-11 HOSVD setting, the card's own PSNR minus the CPU's (dB) and
 # the card's encode ms, read on the same image before the codecs' mode eigh
 # went to the host's LAPACK (an earlier run read -0.52, +1.05 and +1.95 dB);
@@ -1485,35 +1473,33 @@ def phase_svd_codec(torch, lt, images: np.ndarray, label: str) -> None:
     """Phase 11, the SVD codec on 8 bench images, RGB patches (the default)
     and YCbCr at q10 and q50: card streams decode on the CPU and CPU streams
     on the card (the cross-decode contract); the card's U V^T is within 1e-3
-    of the CPU's (relative), and with the CPU's signs the card
-    stream's PSNR is within 0.1 dB of the CPU stream's. After the encoder's
-    leading-sign rule every factorization's leading side on the card is the
-    CPU's. The card's own stream is at most RAW_GAP_DB below the CPU's; its
-    mean and worst gap beside PR 9's (before the rule), the gap with both
-    decoded `debiased`, how many components the card's solver signs
-    otherwise, and how often each solver's leading component is negative,
-    are printed."""
+    of the CPU's (relative), and with the CPU's signs the card stream's PSNR
+    is within 0.1 dB of the CPU stream's. The codec factors through the
+    host's LAPACK on every device, so the card's own stream is within
+    SVD_GAP_DB of the CPU's. How many streams are byte-identical, the
+    encode ms beside SVD_BEFORE's, the gap with both decoded `debiased`, and
+    how many components the card's factorization signs otherwise, are
+    printed."""
     from lrf_tpu_torch.models import svd as msvd
 
-    for kw in (dict(quality=10), dict(quality=10, color_space="YCbCr")):  # warm-up: cuSOLVER, the coder
+    for kw in (dict(quality=10), dict(quality=10, color_space="YCbCr")):  # warm-up: scipy, the coder
         lt.svd_decode(lt.svd_encode(images[0], device="cuda", **kw), device="cuda")
+    identical, streams = 0, 0
     for color_space in ("RGB", "YCbCr"):
         for q in (10, 50):
             kw = dict(quality=q, color_space=color_space)
-            enc_ms, dec_ms, raw, aligned, unbiased, worst = [], [], [], [], [], []
-            lead_card, lead_cpu = [], []
+            enc_ms, dec_ms, raw, aligned, unbiased, worst, same = [], [], [], [], [], [], []
             for i, img in enumerate(images):
-                with lead_signs(msvd, lead_card):
-                    t_enc, s_card = best_s(lambda: lt.svd_encode(img, device="cuda", **kw), reps=1)
+                t_enc, s_card = best_s(lambda: lt.svd_encode(img, device="cuda", **kw), reps=1)
                 t_dec, d_card = best_s(lambda: lt.svd_decode(s_card, device="cuda"), reps=1)
                 enc_ms.append(t_enc * 1e3)
                 dec_ms.append(t_dec * 1e3)
-                with lead_signs(msvd, lead_cpu):
-                    s_cpu = lt.svd_encode(img, device="cpu", **kw)
+                s_cpu = lt.svd_encode(img, device="cpu", **kw)
+                same.append(s_card == s_cpu)
                 d_cpu = lt.svd_decode(s_cpu, device="cpu")
                 close_pixels(lt.svd_decode(s_card, device="cpu"), d_card, f"SVD {color_space} q{q} image {i} card stream")
                 close_pixels(lt.svd_decode(s_cpu, device="cuda"), d_cpu, f"SVD {color_space} q{q} image {i} CPU stream")
-                with cpu_signs(torch, msvd, "svd_balanced_factors", align_svd, worst):
+                with cpu_signs(torch, msvd, "_balanced_factors", align_svd, worst):
                     s_aligned = lt.svd_encode(img, device="cuda", **kw)
                 p_cpu = float(per_image_psnr(img, d_cpu))
                 raw.append(float(per_image_psnr(img, d_card)) - p_cpu)
@@ -1521,40 +1507,39 @@ def phase_svd_codec(torch, lt, images: np.ndarray, label: str) -> None:
                 with debiased(msvd):
                     unbiased.append(float(per_image_psnr(img, lt.svd_decode(s_card, device="cuda")))
                                     - float(per_image_psnr(img, lt.svd_decode(s_cpu, device="cuda"))))
+            identical += sum(same)
+            streams += len(same)
             cos, gap = min(w[0] for w in worst), max(w[1] for w in worst)
             flipped, components = sum(w[2] for w in worst), sum(w[3] for w in worst)
-            solver_card, solver_cpu = sum(w[4] for w in worst), sum(w[5] for w in worst)
-            agree = sum(a == b for a, b in zip(lead_card, lead_cpu))
-            check(len(lead_card) == len(lead_cpu) > 0 and agree == len(lead_card),
-                  f"SVD {color_space} q{q}: after the sign rule the leading side agrees with the CPU's in {agree} of "
-                  f"{len(lead_card)} factorizations")
-            check(gap < 1e-3, f"SVD {color_space} q{q}: card U V^T off the CPU's by {gap} (relative)")
-            check(max(abs(d) for d in aligned) < 0.1, f"SVD {color_space} q{q}: with the CPU's signs the card's PSNR is "
-                  f"off the CPU's by {aligned} dB")
-            check(min(raw) >= -RAW_GAP_DB, f"SVD {color_space} q{q}: the card's own streams' PSNR is off the "
-                  f"CPU's by {raw} dB")
+            lead_card, lead_cpu = sum(w[4] for w in worst), sum(w[5] for w in worst)
             print(f"svd [{label}] {color_space} q{q}, 8 x 512x768: encode {np.median(enc_ms):.2f} ms per image (median; "
                   f"min {min(enc_ms):.2f}, max {max(enc_ms):.2f}), decode {np.median(dec_ms):.2f} ms; cross-decode ok; "
                   f"U V^T within {gap:.3g} of the CPU's (relative), factors' least |cos| {cos:.6f}; card - CPU "
                   f"PSNR with the CPU's signs max |d| "
-                  f"{max(abs(d) for d in aligned):.6f} dB, with the solvers' own signs {min(raw):+.4f}..{max(raw):+.4f} "
-                  f"dB (mean {np.mean(raw):+.4f}), decoded debiased max |d| {max(abs(d) for d in unbiased):.6f} dB "
-                  f"(mean {np.mean(unbiased):+.4f}); the solvers' signs differ in {flipped} of {components} "
-                  f"components, their leading component negative in {solver_card} of {len(worst)} factorizations on "
-                  f"the card, {solver_cpu} on the CPU", flush=True)
-            before = SVD_GAP_BEFORE_RULE[(color_space, q)]
+                  f"{max(abs(d) for d in aligned):.6f} dB, with the card's own {min(raw):+.6f}..{max(raw):+.6f} "
+                  f"dB (mean {np.mean(raw):+.6f}), decoded debiased max |d| {max(abs(d) for d in unbiased):.6f} dB; "
+                  f"signs apart in {flipped} of {components} components, the leading component negative in "
+                  f"{lead_card} of {len(worst)} factorizations on the card, {lead_cpu} on the CPU", flush=True)
+            before = SVD_BEFORE[(color_space, q)]
             worst_i = int(np.argmin(raw))
-            print(f"svd [{label}] {color_space} q{q}, sign rule: leading side equal to the CPU's in {agree} of "
-                  f"{len(lead_card)} factorizations; card - CPU PSNR of the own streams mean {np.mean(raw):+.4f} dB, "
-                  f"worst {raw[worst_i]:+.4f} dB (image {worst_i}); PR 9, before the rule: mean {before[0]:+.4f}, "
-                  f"worst {before[1]:+.4f} dB", flush=True)
+            print(f"svd [{label}] {color_space} q{q}, host LAPACK: {sum(same)} of {len(same)} streams byte-identical to "
+                  f"the CPU's; card - CPU PSNR mean {np.mean(raw):+.6f} dB, worst {raw[worst_i]:+.6f} dB (image "
+                  f"{worst_i}); encode {np.median(enc_ms):.2f} ms; before, through torch.linalg.svd with the sign "
+                  f"rule: mean {before[1]:+.4f}, worst {before[2]:+.4f} dB, encode {before[0]:.2f} ms", flush=True)
+            check(gap < 1e-3, f"SVD {color_space} q{q}: card U V^T off the CPU's by {gap} (relative)")
+            check(max(abs(d) for d in aligned) < 0.1, f"SVD {color_space} q{q}: with the CPU's signs the card's PSNR is "
+                  f"off the CPU's by {aligned} dB")
+            check(max(abs(d) for d in raw) < SVD_GAP_DB, f"SVD {color_space} q{q}: the card's own streams' PSNR is off "
+                  f"the CPU's by {raw} dB, beyond {SVD_GAP_DB}")
+    print(f"svd [{label}] streams byte-identical card against CPU: {identical} of {streams} (8 images x RGB, YCbCr x "
+          f"q10, q50)", flush=True)
 
 
 def phase_hosvd_tt(torch, lt, img: np.ndarray, label: str) -> None:
     """Phase 11, HOSVD at com_ratio 50, patch-HOSVD with its SSIM rank search
     at bpp 0.5 (8x8 patches, one feasible r1) and at bpp 1 (16x16 patches,
     11), and TT on one 512x768 image, card against CPU. The card's own PSNR
-    is at most RAW_GAP_DB below the CPU's; that gap is printed beside its
+    is within HOSVD_GAP_DB of the CPU's; that gap is printed beside its
     reading before the mode eigh went to the host (HOSVD_BEFORE), with the
     encode ms and the host eigh's share of them, and the gap with both
     decoded `debiased`."""
@@ -1633,7 +1618,7 @@ def phase_hosvd_tt(torch, lt, img: np.ndarray, label: str) -> None:
             print(f"{name} [{label}] {kw}: mode factors, card against CPU: {'; '.join(modes)}", flush=True)
         check(gap < 1e-3, f"{name} {kw}: card reconstruction off the CPU's by {gap} (relative)")
         check(abs(d_al) < 0.1, f"{name} {kw}: with the CPU's signs the card's PSNR is off the CPU's by {d_al} dB")
-        check(d_raw >= -RAW_GAP_DB, f"{name} {kw}: the card's own PSNR is off the CPU's by {d_raw} dB")
+        check(abs(d_raw) < HOSVD_GAP_DB, f"{name} {kw}: the card's own PSNR is off the CPU's by {d_raw} dB")
 
     def tt_error(x):
         rec = lt.contract_tt(lt.ttd(x, (3, 48)))
@@ -1764,16 +1749,20 @@ CHECK_Q = np.linspace(0, 40, 80)[[10, 40, 79]]
 CHECK_SVD_Q = float(np.linspace(0.0, 5, 30)[10])
 CHECK_JPEG_Q = 30
 # Card and CPU QMF streams differ where the two inits (cuSOLVER's and
-# LAPACK's eigh, last bits apart) steer a round() tie in the sweeps: held to
-# the port's RD contract, PSNR within 0.2 dB, with bpp within CHECK_BPP and
-# SSIM within CHECK_SSIM. First bounds of 1% and 1e-3 failed on an H100
-# (700 W): china.png q20.25 read SSIM 1.13e-3 apart (0.0035 dB, 0.23% bpp),
-# clic_flower_fig.png q40 1.24% bpp (0.043 dB, SSIM 2.1e-4). The cause,
-# measured from one X and one init (below; H100, 700 W): 5 of the 6 points'
-# streams byte-identical and the sixth +0.000462 dB, -0.0204% bpp, one
-# kernel round() at 3.85e-07 of a tie; so the gap from each side's own init
-# is the inputs': the init's eigensolver, and the card's X, which differs
-# from the CPU's in 3.4-4.4% of entries on these two images.
+# LAPACK's eigh of Grams summed by cuBLAS and by the CPU's BLAS, last bits
+# apart) steer a round() tie in the sweeps: held to the port's RD contract,
+# PSNR within 0.2 dB, with bpp within CHECK_BPP and SSIM within CHECK_SSIM.
+# First bounds of 1% and 1e-3 failed on an H100 (700 W): china.png q20.25
+# read SSIM 1.13e-3 apart (0.0035 dB, 0.23% bpp), clic_flower_fig.png q40
+# 1.24% bpp (0.043 dB, SSIM 2.1e-4). From one X and one init (below; H100,
+# 700 W) 5 of the 6 points' streams are byte-identical and the sixth
+# +0.000462 dB, -0.0204% bpp, one kernel round() at 4.15e-08 of a tie; so
+# the gap from each side's own init is the inputs'. Since the chroma pool
+# gives the card the CPU's X (0 entries apart on every local7 image, where
+# 3.4-4.4% were apart on these two images), the inputs that still differ
+# are the Gram and the eigensolver, and the gap did not shrink:
+# clic_flower_fig.png q40 read 1.1540% bpp, 0.068512 dB and SSIM 1.70e-3
+# (H100, 700 W). So the bounds stay 2% and 5e-3.
 CHECK_BPP = 0.02
 CHECK_SSIM = 5e-3
 # The cause those bounds rest on, measured: the same points from one X and
@@ -2005,11 +1994,38 @@ def sweep_comparison(torch, lt, bk, label: str, tmp: str):
     return rows, dict(seconds)
 
 
+def front_end_stacks(torch, img: np.ndarray, device: str) -> list:
+    """The codec's Y, Cb and Cr patch stacks of `img` (YCbCr, chroma at 0.5,
+    8x8 patches) built on `device`, on the host."""
+    from lrf_tpu_torch.ops import color, pad, patch, resample
+
+    x = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    return [patch.patchify(pad.pad_image(c, (8, 8)), (8, 8)).cpu()
+            for c in resample.chroma_downsample(color.rgb_to_ycbcr(x), (0.5, 0.5))]
+
+
+def sweep_front_end(torch, lt, label: str) -> None:
+    """The card's X against the CPU's on each local7 image: the Y, Cb and
+    Cr stacks built on the card and on the CPU must have no entry apart
+    (the chroma pool sums in one fixed order on every device)."""
+    from lrf_tpu_torch.experiments import common as ex
+
+    for path in ex.dataset_images(os.path.join(HERE, "experiments", "data", "local7")):
+        img, name = lt.read_image(path), os.path.basename(path)
+        apart = []
+        for card, cpu in zip(front_end_stacks(torch, img, "cuda"), front_end_stacks(torch, img, "cpu")):
+            check(card.shape == cpu.shape, f"{name}: stack {tuple(card.shape)} on the card, {tuple(cpu.shape)} on the CPU")
+            apart.append((int((card != cpu).sum()), card.numel()))
+        print(f"sweeps [{label}] {name} {tuple(img.shape)}: the card's X against the CPU's, entries apart: "
+              + ", ".join(f"{c} {n} of {m}" for c, (n, m) in zip(("Y", "Cb", "Cr"), apart)), flush=True)
+        check(all(n == 0 for n, _ in apart), f"{name}: the card's X differs from the CPU's: {apart}")
+
+
 def sweep_cpu_check(torch, lt, bk, label: str) -> None:
     """The port on the same machine's CPU against the card on 2 local7
     images: QMF at 3 qualities (PSNR within 0.2 dB, bpp within CHECK_BPP,
     SSIM within CHECK_SSIM), one JPEG point (equal bytes, metrics within 1e-5) and one
-    SVD point (the leading sides equal, the card at most RAW_GAP_DB below).
+    SVD point (PSNR within SVD_GAP_DB).
     Then the cause those QMF bounds rest on: each QMF point encoded again on
     both sides from one X and one init (`one_init`), where the card's sweeps
     must agree with the CPU's as the kernels agree with the plain version:
@@ -2019,7 +2035,6 @@ def sweep_cpu_check(torch, lt, bk, label: str) -> None:
     are printed."""
     from lrf_tpu_torch.experiments import common as ex
     from lrf_tpu_torch.models import qmf as mq
-    from lrf_tpu_torch.models import svd as msvd
     from lrf_tpu_torch.ops import bcd as bcd_mod
 
     paths = ex.dataset_images(os.path.join(HERE, "experiments", "data", "local7"))[:2]
@@ -2068,20 +2083,15 @@ def sweep_cpu_check(torch, lt, bk, label: str) -> None:
         check(a["bit rate (bpp)"] == b["bit rate (bpp)"], f"{name} JPEG q{CHECK_JPEG_Q}: bytes differ")
         for key in ("PSNR (dB)", "SSIM"):
             check(abs(a[key] - b[key]) <= 1e-5 * abs(b[key]), f"{name} JPEG {key} {a[key]} vs {b[key]}")
-        lead_card, lead_cpu = [], []
-        with lead_signs(msvd, lead_card):
-            (a,) = ex.sweep_svd(img, name, qualities=[CHECK_SVD_Q], device="cuda")
-        with lead_signs(msvd, lead_cpu):
-            (b,) = ex.sweep_svd(img, name, qualities=[CHECK_SVD_Q], device="cpu")
-        check(lead_card == lead_cpu, f"{name} SVD: leading sides {lead_card} on the card, {lead_cpu} on the CPU")
+        (a,), (b,) = (ex.sweep_svd(img, name, qualities=[CHECK_SVD_Q], device=d) for d in ("cuda", "cpu"))
         d = a["PSNR (dB)"] - b["PSNR (dB)"]
-        check(d >= -RAW_GAP_DB, f"{name} SVD q{CHECK_SVD_Q:.2f}: card {d:+.4f} dB off the CPU")
-        worst["SVD PSNR"] = min(worst["SVD PSNR"], d)
+        check(abs(d) < SVD_GAP_DB, f"{name} SVD q{CHECK_SVD_Q:.2f}: card {d:+.6f} dB off the CPU")
+        worst["SVD PSNR"] = max(worst["SVD PSNR"], abs(d))
         worst["SVD bpp"] = max(worst["SVD bpp"], abs(a["bit rate (bpp)"] / b["bit rate (bpp)"] - 1))
     print(f"sweeps [{label}] card against the CPU on {', '.join(os.path.basename(p) for p in paths)}: QMF at q "
           f"{', '.join(f'{q:.2f}' for q in CHECK_Q)}: bpp within {100 * worst['QMF bpp']:.4f}%, PSNR within "
           f"{worst['QMF PSNR']:.6f} dB, SSIM within {worst['QMF SSIM']:.2e}; JPEG q{CHECK_JPEG_Q} equal bytes; SVD "
-          f"q{CHECK_SVD_Q:.2f}: leading sides equal, card - CPU PSNR >= {worst['SVD PSNR']:+.4f} dB, bpp within "
+          f"q{CHECK_SVD_Q:.2f}: card - CPU PSNR within {worst['SVD PSNR']:.6f} dB, bpp within "
           f"{100 * worst['SVD bpp']:.4f}%; {time.perf_counter() - t0:.1f} s", flush=True)
     apart = one["same"].count(False)
     print(f"sweeps [{label}] the same QMF points from one X and one init (the card's sweeps in the planned kernels, "
@@ -2354,9 +2364,10 @@ def sweep_figures(label: str, rows: list, tmp: str) -> None:
 
 
 def phase_sweeps(torch, lt, bk, label: str) -> None:
-    """Phase 12: the sweep layer on the card (comparison sweep with resume,
-    CPU cross-check, the four ablations, aggregates and LOESS curves, the
-    codec step and the dry run, the figures)."""
+    """Phase 12: the sweep layer on the card (the card's X against the
+    CPU's, comparison sweep with resume, CPU cross-check, the four
+    ablations, aggregates and LOESS curves, the codec step and the dry run,
+    the figures)."""
     import tempfile
 
     from lrf_tpu_torch.ops import bcd as bcd_mod
@@ -2368,6 +2379,8 @@ def phase_sweeps(torch, lt, bk, label: str) -> None:
         print(f"phase 12 {part}: {clock[-1] - clock[-2]:.1f} s [{label}]", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
+        sweep_front_end(torch, lt, label)
+        lap("the card's X")
         rows, _ = sweep_comparison(torch, lt, bk, label, tmp)
         lap("comparison sweep")
         sweep_cpu_check(torch, lt, bk, label)

@@ -1,7 +1,7 @@
 """SVD image codec (the baseline): truncated SVD and uniform quantization.
 
 Port of `lrf_tpu/models/svd.py`: the QMF framework, but the factors are
-the sqrt(s)-balanced truncated-SVD factors (`torch.linalg.svd`),
+the sqrt(s)-balanced truncated-SVD factors (LAPACK's `?gesdd`, below),
 min/max-quantized to the target integer dtype with `(scale, min)` in the
 metadata. The container and metadata keys are the JAX package's and the
 reference's, so streams decode in either package.
@@ -11,15 +11,13 @@ The YCbCr branch is the JAX package's repair of the reference's broken one
 no-patch decode restores the channel dim the reference's would drop.
 
 One `(scale, min)` quantizes all of U with a truncating cast, so each
-component's sign moves every quantized value, and the solvers pick signs by
-their own rules (LAPACK on the CPU, cuSOLVER on the card). The encoder
-therefore signs the leading component by a rule (`_lead_sign`): its u
-column sums to at most 0 where the matrix is tall (M >= N: the patch
-stacks of a photograph) and to at least 0 where it is wide (M < N: the
-no-patch channels of a landscape image), the side LAPACK, and so the JAX
-package on the CPU, returns on the photographs measured. The trailing
-components keep the solver's signs, so quantized streams still need not
-equal the JAX package's byte for byte.
+component's sign moves every quantized value. The codec therefore factors
+through LAPACK's `?gesdd` on the host (`ops/svd.py::_lapack_svd`, scipy)
+on every device, as the HOSVD codecs take LAPACK's `?syevd`: that routine
+is the JAX package's CPU `svd`, so the signs are the JAX package's, and the
+card's streams are the CPU's wherever their X is. The factors go back to
+the caller's device, and the quantizer runs there. `torch.linalg.svd` would
+take its own LAPACK's signs on the CPU and cuSOLVER's on the card.
 Float-factor streams (`dtype=np.float32`) decode to the same pixels
 whatever the signs.
 """
@@ -44,9 +42,9 @@ from lrf_tpu_torch.models.qmf import _as_tensor, _padded_size, _patched_mat_size
 from lrf_tpu_torch.ops.color import rgb_to_ycbcr, ycbcr_to_rgb
 from lrf_tpu_torch.ops.pad import pad_image, unpad_image
 from lrf_tpu_torch.ops.patch import depatchify, patchify
-from lrf_tpu_torch.ops.quantize import np_dequantize, quantize, to_dtype
+from lrf_tpu_torch.ops.quantize import _jitted_quantize, np_dequantize, to_dtype
 from lrf_tpu_torch.ops.resample import chroma_downsample, chroma_upsample
-from lrf_tpu_torch.ops.svd import svd_balanced_factors
+from lrf_tpu_torch.ops.svd import _lapack_svd, pad_rank
 from lrf_tpu_torch.utils.transfer import resolve_device, to_host
 
 __all__ = ["svd_encode", "svd_decode", "svd_rank", "svd_compression_ratio"]
@@ -64,28 +62,25 @@ def svd_compression_ratio(size: tuple[int, int], rank: int) -> float:
     return (num_rows * num_cols) / (rank * (num_rows + num_cols))
 
 
-def _lead_sign(u: torch.Tensor, v: torch.Tensor):
-    """`(u, v)` with the leading component of each factorization negated,
-    in both factors, where its u column sums to the other side from
-    LAPACK's: above 0 for a tall X (M >= N), below 0 for a wide one. `u v^T`
-    is unchanged."""
-    lead = u[..., 0].sum(-1)
-    flip = lead > 0 if u.shape[-2] >= v.shape[-2] else lead < 0
-    sign = torch.where(flip, -1.0, 1.0).to(u.dtype)
-    scale = torch.ones(u.shape[:-2] + (1, u.shape[-1]), dtype=u.dtype, device=u.device)
-    scale[..., 0, 0] = sign
-    return u * scale, v * scale
+def _balanced_factors(x: torch.Tensor, rank: int):
+    """sqrt(s)-balanced truncated-SVD factors `x ~ u @ v.T` by the host's
+    LAPACK (`_lapack_svd`), zero-padded on the rank axis up to `rank`, as
+    `svd_balanced_factors` gives them."""
+    r = min(rank, x.shape[-2], x.shape[-1])
+    u, s, vh = _lapack_svd(x)
+    rs = torch.sqrt(s[..., :r])[..., None, :]
+    return pad_rank(u[..., :, :r] * rs, vh.transpose(-1, -2)[..., :, :r] * rs, rank)
 
 
 def _encode_channel(x: torch.Tensor, rank: int, patch: bool, patch_size, qdtype: Optional[np.dtype]):
     """Host `(u, v)` and their `[scale, min]` pairs (None for float factors)."""
     x = x.to(torch.float32)
     xm = patchify(pad_image(x, patch_size), patch_size) if patch else x
-    u, v = _lead_sign(*svd_balanced_factors(xm, rank, method="svd"))
+    u, v = _balanced_factors(xm, rank)
     if qdtype is None:
         return to_host(u), to_host(v), None, None
-    qu, su, mu = quantize(u, qdtype)
-    qv, sv, mv = quantize(v, qdtype)
+    qu, su, mu = _jitted_quantize(u, qdtype)
+    qv, sv, mv = _jitted_quantize(v, qdtype)
     return to_host(qu), to_host(qv), [float(su), float(mu)], [float(sv), float(mv)]
 
 

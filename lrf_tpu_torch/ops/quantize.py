@@ -68,14 +68,32 @@ def quantize(x: torch.Tensor, target_dtype):
     ``scale = (max - min) / (qmax - qmin)``, all in float32 like the JAX
     package's 0-d arrays (the SVD codec writes `float(scale)` into its
     metadata). Returns `(q, scale, min_val)`, the last two 0-d tensors.
+    The divisor is a tensor on x's device: the card divides by a Python
+    scalar as a product with its reciprocal, which can move the last bit.
     """
     qmin, qmax = dtype_range(target_dtype)
     x = x.to(torch.float32)
     min_val = torch.amin(x)
-    max_val = torch.amax(x)
-    scale = (max_val - min_val) / (qmax - qmin)
-    q = torch.clamp((x - min_val) / scale + qmin, qmin, qmax).to(torch_dtype(target_dtype))
-    return q, scale, min_val
+    scale = (torch.amax(x) - min_val) / torch.tensor(float(qmax - qmin), device=x.device)
+    return _levels(x, scale, min_val, qmin, qmax, target_dtype), scale, min_val
+
+
+def _jitted_quantize(x: torch.Tensor, target_dtype):
+    """`quantize` as XLA compiles it inside the JAX package's jitted SVD
+    codec (`lrf_tpu/models/svd.py::_svd_core`): there the division by the
+    constant ``qmax - qmin`` becomes a product with its float32 reciprocal,
+    which moves the scale's last bit in most factors. The same bits on
+    every device."""
+    qmin, qmax = dtype_range(target_dtype)
+    x = x.to(torch.float32)
+    min_val = torch.amin(x)
+    recip = torch.tensor(np.float32(1.0) / np.float32(qmax - qmin), device=x.device)
+    scale = (torch.amax(x) - min_val) * recip
+    return _levels(x, scale, min_val, qmin, qmax, target_dtype), scale, min_val
+
+
+def _levels(x, scale, min_val, qmin, qmax, target_dtype) -> torch.Tensor:
+    return torch.clamp((x - min_val) / scale + qmin, qmin, qmax).to(torch_dtype(target_dtype))
 
 
 def dequantize(q: torch.Tensor, scale, min_val) -> torch.Tensor:

@@ -20,7 +20,9 @@ as the JAX package does: there the method only picks the eigen-solver,
 `_lapack_eigh` is the eigensolver of the HOSVD codecs' mode SVDs alone
 (`ops/hosvd.py`): LAPACK's `?syevd` through scipy, on the host. It gives
 the JAX package's eigenvector signs, which the codecs' truncating
-quantizers turn into PSNR; no other path takes it.
+quantizers turn into PSNR; no other path takes it. `_lapack_svd` is the
+same for the SVD codec (`models/svd.py`): LAPACK's `?gesdd`, the JAX
+package's CPU `svd`, on the host.
 
 Each method is split into a Gram half (`gram`, `top_pairs_from_gram`) and
 a row-local half (`left_factor`), so a caller that holds X in row shards
@@ -68,6 +70,29 @@ def _lapack_eigh(g: torch.Tensor):
         evals[i], evecs[i] = scipy.linalg.eigh(a, driver="evd")
     return (torch.from_numpy(evals.reshape(host.shape[:-1])).to(g.device),
             torch.from_numpy(evecs.reshape(host.shape)).to(g.device))
+
+
+def _lapack_svd(a: torch.Tensor):
+    """Thin SVD `(u, s, vh)` of a batched `(..., M, N)` by LAPACK's `?gesdd`
+    (`scipy.linalg.svd(lapack_driver="gesdd")`), one matrix at a time on
+    the host in the input's dtype; the result goes back to the input's
+    device.
+
+    The JAX package's CPU `svd` is this LAPACK routine, so the singular
+    vectors' signs are the JAX package's. `torch.linalg.svd` takes another
+    LAPACK's (or cuSOLVER's) signs, and the SVD codec's truncating quantizer
+    turns signs into PSNR.
+    """
+    host = a.detach().cpu().numpy()
+    flat = host.reshape(-1, *host.shape[-2:])
+    k = min(flat.shape[-2:])
+    u = np.empty((flat.shape[0], flat.shape[1], k), flat.dtype)
+    s = np.empty((flat.shape[0], k), flat.dtype)
+    vh = np.empty((flat.shape[0], k, flat.shape[2]), flat.dtype)
+    for i, m in enumerate(flat):
+        u[i], s[i], vh[i] = scipy.linalg.svd(m, full_matrices=False, lapack_driver="gesdd")
+    lead = host.shape[:-2]
+    return tuple(torch.from_numpy(t.reshape(lead + t.shape[1:])).to(a.device) for t in (u, s, vh))
 
 
 def _tiny_root(dtype) -> float:

@@ -124,18 +124,17 @@ def test_sweep_svd_rows(jcommon, crop, monkeypatch):
     from lrf_tpu.ops import svd as jsvd
     from lrf_tpu_torch.models import svd as psvd
 
-    port_factors = psvd.svd_balanced_factors
+    port_factors = psvd._balanced_factors
 
-    def with_jax_signs(x, rank, method="gram"):
-        u, v = port_factors(x, rank, method=method)
-        u_j = torch.from_numpy(np.asarray(jsvd.svd_balanced_factors(jnp.asarray(x.numpy()), rank, method=method)[0]))
+    def with_jax_signs(x, rank):
+        u, v = port_factors(x, rank)
+        u_j = torch.from_numpy(np.asarray(jsvd.svd_balanced_factors(jnp.asarray(x.numpy()), rank, method="svd")[0]))
         sign = torch.where((u * u_j).sum(-2) < 0, -1.0, 1.0)[..., None, :]
         return u * sign, v * sign
 
     want = jcommon.sweep_svd(crop, "x.png", qualities=[1.0, 3.0])
     raw = tcommon.sweep_svd(crop, "x.png", qualities=[1.0, 3.0], device="cpu")
-    monkeypatch.setattr(psvd, "svd_balanced_factors", with_jax_signs)
-    monkeypatch.setattr(psvd, "_lead_sign", lambda u, v: (u, v))  # every sign the JAX package's
+    monkeypatch.setattr(psvd, "_balanced_factors", with_jax_signs)  # every sign the JAX package's
     got = tcommon.sweep_svd(crop, "x.png", qualities=[1.0, 3.0], device="cpu")
     _same_schema(want, raw)
     _same_schema(want, got)

@@ -13,26 +13,25 @@ package's, on the CPU.
   decodes to the JAX package's pixels within the same +-1 contract.
 - Quantized streams depend on the solver's singular-vector signs: one
   `(scale, min)` quantizes all of U with a truncating cast, so the sign of a
-  component moves its rounding error. LAPACK's `gesdd` in torch and in JAX
-  pick different signs (most of all the leading component's), and the
-  streams' PSNR then differs: on this file's crop by -0.31 dB (RGB q10),
-  -1.56 dB (RGB q50) and +0.22 dB (YCbCr q20), on other crops by up to
-  about 3 dB at q50. With the port's factors given the JAX package's
-  signs, the port's stream is within 0.1 dB of the JAX package's (measured
-  on this crop: at most 0.0033 dB); that is the contract held here.
+  component moves its rounding error. The port factors through LAPACK's
+  `?gesdd` on the host (`ops/svd.py::_lapack_svd`, scipy), the JAX
+  package's CPU `svd`, so it takes the JAX package's signs: on every
+  well-separated component of the crops' stacks (`CROPS`), and its q20
+  streams are within 0.01 dB of the JAX package's. `torch.linalg.svd`
+  took other signs, most of all the leading component's (-0.31 dB at RGB
+  q10, -1.56 dB at RGB q50 on this file's crop). With the port's factors
+  given the JAX package's signs, the stream is within 0.1 dB.
+- The codec's quantizer is the JAX package's jitted one: its scale is
+  ``(max - min) * float32(1 / (qmax - qmin))``, as XLA compiles the
+  division by a constant, bit for bit.
 - `pil_encode` / `pil_decode` give the same bytes and arrays.
-- The encoder's leading-sign rule (`models/svd.py::_lead_sign`): the CPU
-  streams are byte-identical to those of 91b3da8, the tree before the rule
-  (sha256 digests taken there), because the CPU's LAPACK already gives the
-  rule's side on every stack of these crops; a leading pair negated before
-  the rule gives the same stream; and the rule's side is LAPACK's in the
-  JAX package too, the leading u column summing below 0 on tall stacks (M
-  >= N) and above 0 on wide ones (the no-patch channels of a photograph),
+- `torch.linalg.svd`'s sides, which the codec no longer takes: its leading
+  u column sums below 0 on tall stacks (M >= N) and above 0 on wide ones
+  (the no-patch channels of a photograph); the JAX package's LAPACK agrees
   but on very wide ones (N >= ~1.8 M: the patch stacks of crops this
-  small), where the JAX package's LAPACK takes the other side.
+  small), where it takes the other side.
 """
 
-import hashlib
 import os
 
 import numpy as np
@@ -140,25 +139,35 @@ def test_float_factor_streams_decode_to_jax_pixels(crop, color_space, patch):
 def test_quantized_stream_psnr_with_jax_signs(crop, monkeypatch, color_space, quality):
     kw = dict(quality=quality, color_space=color_space)
     p_jax = _psnr(crop, lrf_tpu.svd_decode(lrf_tpu.svd_encode(crop, **kw)))
-    port_factors = psvd.svd_balanced_factors
+    port_factors = psvd._balanced_factors
 
-    def with_jax_signs(x, rank, method="gram"):
-        u, v = port_factors(x, rank, method=method)
-        u_j = torch.from_numpy(np.asarray(jsvd.svd_balanced_factors(jnp.asarray(x.numpy()), rank, method=method)[0]))
+    def with_jax_signs(x, rank):
+        u, v = port_factors(x, rank)
+        u_j = torch.from_numpy(np.asarray(jsvd.svd_balanced_factors(jnp.asarray(x.numpy()), rank, method="svd")[0]))
         # the same components up to sign: |cos| ~ 1 per column
         cos = (u * u_j).sum(-2) / (u.norm(dim=-2) * u_j.norm(dim=-2))
         assert float((cos.abs() - 1).abs().max()) < 1e-3
         sign = torch.where(cos < 0, -1.0, 1.0)[..., None, :]
         return u * sign, v * sign
 
-    monkeypatch.setattr(psvd, "svd_balanced_factors", with_jax_signs)
-    # every sign the JAX package's: the encoder's leading-sign rule would
-    # re-sign the JAX package's leading component on a very wide stack
-    # (N >= ~1.8 M, such as this crop's 96 x 192 RGB patch stack), where
-    # its LAPACK takes the other side from torch's
-    monkeypatch.setattr(psvd, "_lead_sign", lambda u, v: (u, v))
+    monkeypatch.setattr(psvd, "_balanced_factors", with_jax_signs)
     p_port = _psnr(crop, lrf_tpu_torch.svd_decode(lrf_tpu_torch.svd_encode(crop, device="cpu", **kw), device="cpu"))
     assert abs(p_port - p_jax) < 0.1, (p_port, p_jax)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16])
+def test_codec_quantizer_is_the_jitted_one(dtype):
+    import jax
+
+    from lrf_tpu_torch.ops.quantize import _jitted_quantize
+
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        x = (rng.standard_normal((61, 12)) * rng.uniform(0.5, 20)).astype(np.float32)
+        qj, sj, mj = jax.jit(lambda a: lrf_tpu.quantize(a, dtype))(jnp.asarray(x))
+        qt, st, mt = _jitted_quantize(torch.from_numpy(x), dtype)
+        assert (float(st), float(mt)) == (float(sj), float(mj))
+        np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
 
 
 @pytest.mark.parametrize("kwargs", [dict(format="PNG"), dict(format="JPEG", quality=50)])
@@ -171,51 +180,45 @@ def test_pil_codec_equal(crop, kwargs):
     assert lrf_tpu_torch.pil_encode(gray, **kwargs) == lrf_tpu.pil_encode(gray, **kwargs)
 
 
-# sha256 of the CPU streams at q10, q20 and q50 in RGB and YCbCr, with and
-# without patches (`_rule_streams`), taken on 91b3da8 (before the sign rule)
-RULE_DIGESTS = {
-    (61, 93, 11, 0): "ae761ba34adc47582c7e6c9d4a0fc19cebfa3f2415f8ba5275bd192f21051cb0",
-    (64, 96, 3, 1): "ce90181bd82c4a083e2c5a63d40ae37bf607fab8ef031dfd2852c4785c085d39",
-    (48, 80, 7, 0): "f17fdbcfdd913cd5a56952d2a8c10095d32af7a3db460742f1c9e9814782abe8",
-}
+# (H, W, seed, index) of the `torch_images.photos` crops whose stacks are
+# held to the JAX package's signs, and how many of their components are
+# well separated; torch.linalg.svd gives the JAX package's sign on 401, 400
+# and 370 of them (1,171 of 1,430)
+SEPARATED = {(61, 93, 11, 0): 512, (64, 96, 3, 1): 528, (48, 80, 7, 0): 390}
+CROPS = sorted(SEPARATED)
 
 
-def _rule_crop(h, w, seed, index):
+def _crop_of(h, w, seed, index):
     return torch_images.photos(index + 1, h, w, seed=seed)[index]
 
 
-def _rule_streams(crop):
-    for color_space in ("RGB", "YCbCr"):
-        for patch in (True, False):
-            for q in (10, 20, 50):
-                yield lrf_tpu_torch.svd_encode(crop, quality=q, color_space=color_space, patch=patch, device="cpu")
+@pytest.mark.parametrize("key", CROPS)
+def test_lapack_svd_gives_jax_signs(key):
+    # Every well-separated component (|cos| > 0.999 against the JAX
+    # package's) of every stack the codec factors takes the JAX package's
+    # sign; over the three crops that is 1,430 components
+    from lrf_tpu_torch.ops.svd import _lapack_svd
 
-
-@pytest.mark.parametrize("key", sorted(RULE_DIGESTS))
-def test_cpu_streams_equal_those_before_the_sign_rule(key):
-    h = hashlib.sha256()
-    for stream in _rule_streams(_rule_crop(*key)):
-        h.update(stream)
-    assert h.hexdigest() == RULE_DIGESTS[key]
+    separated = 0
+    for xm in _codec_stacks(_crop_of(*key)):
+        u = _lapack_svd(xm)[0].numpy()
+        u_j = np.asarray(jnp.linalg.svd(jnp.asarray(xm.numpy()), full_matrices=False)[0])
+        cos = (u * u_j).sum(0) / (np.linalg.norm(u, axis=0) * np.linalg.norm(u_j, axis=0))
+        well = np.abs(cos) > 0.999
+        assert (cos[well] > 0).all(), (tuple(xm.shape), np.flatnonzero(well & (cos < 0)))
+        separated += int(well.sum())
+    assert separated == SEPARATED[key]
 
 
 @pytest.mark.parametrize("color_space,patch", VARIANTS)
-def test_sign_rule_undoes_a_negated_leading_pair(crop, monkeypatch, color_space, patch):
-    kw = dict(quality=20, color_space=color_space, patch=patch, device="cpu")
-    want = lrf_tpu_torch.svd_encode(crop, **kw)
-    port_factors = psvd.svd_balanced_factors
-    flipped = []
-
-    def negated_lead(x, rank, method="gram"):
-        u, v = port_factors(x, rank, method=method)
-        scale = torch.ones(u.shape[-1])
-        scale[0] = -1.0
-        flipped.append(True)
-        return u * scale, v * scale
-
-    monkeypatch.setattr(psvd, "svd_balanced_factors", negated_lead)
-    assert lrf_tpu_torch.svd_encode(crop, **kw) == want
-    assert flipped
+def test_quantized_stream_within_a_hundredth_db_of_jax(crop, color_space, patch):
+    # no monkeypatch: the codec's own signs are the JAX package's, also on
+    # the crop's very wide stacks (N >= ~1.8 M), where torch's LAPACK took
+    # the other side for the leading component
+    kw = dict(quality=20, color_space=color_space, patch=patch)
+    p_jax = _psnr(crop, lrf_tpu.svd_decode(lrf_tpu.svd_encode(crop, **kw)))
+    p_port = _psnr(crop, lrf_tpu_torch.svd_decode(lrf_tpu_torch.svd_encode(crop, device="cpu", **kw), device="cpu"))
+    assert abs(p_port - p_jax) < 0.01, (p_port, p_jax)
 
 
 def _codec_stacks(crop):
@@ -234,21 +237,23 @@ def _codec_stacks(crop):
 
 
 def _lead_sums(xm):
-    u_t, _ = psvd.svd_balanced_factors(xm, 4, method="svd")
+    from lrf_tpu_torch.ops.svd import svd_balanced_factors
+
+    u_t, _ = svd_balanced_factors(xm, 4, method="svd")
     u_j, _ = jsvd.svd_balanced_factors(jnp.asarray(xm.numpy()), 4, method="svd")
     return float(u_t[:, 0].sum()), float(np.asarray(u_j)[:, 0].sum())
 
 
 def test_lapack_gives_the_rules_side():
-    # The precondition of the digests above: the CPU solver's leading u
-    # column sums below 0 on every tall stack of the crops and above 0 on
-    # every wide one, so the rule changes nothing there. The JAX package's
-    # LAPACK agrees on the tall stacks and on the wide ones up to N < ~1.8 M;
-    # on the very wide patch stacks of such small crops (15 x 64, 24 x 64,
-    # 60 x 192, 96 x 192) it takes the other side from torch's.
+    # torch.linalg.svd's leading u column sums below 0 on every tall stack
+    # of the crops and above 0 on every wide one. The JAX package's LAPACK
+    # agrees on the tall stacks and on the wide ones up to N < ~1.8 M; on
+    # the very wide patch stacks of such small crops (15 x 64, 24 x 64,
+    # 60 x 192, 96 x 192) it takes the other side from torch's, which is why
+    # the codec takes LAPACK's own factorization instead of a sign rule.
     sides = {"tall": 0, "wide": 0, "very wide, JAX's other side": 0}
-    for key in RULE_DIGESTS:
-        for xm in _codec_stacks(_rule_crop(*key)):
+    for key in CROPS:
+        for xm in _codec_stacks(_crop_of(*key)):
             port, jax_side = _lead_sums(xm)
             m, n = xm.shape
             if m >= n:
@@ -265,8 +270,8 @@ def test_lapack_gives_the_rules_side():
 
 def test_lapack_signs_a_photographs_wide_channels_positive():
     # The no-patch channels of a landscape photograph are wide (M < N):
-    # there LAPACK's leading u column sums above 0 in both packages, which
-    # is why the rule's side depends on the shape
+    # there LAPACK's leading u column sums above 0 in both packages, so a
+    # sign rule's side would depend on the shape
     photo = torch_images.load(os.path.join(torch_images.DATA, "local7", "china.png"))
     for xm in _codec_stacks(photo):
         port, jax_side = _lead_sums(xm)

@@ -1,6 +1,10 @@
 """Measured divergences of the PyTorch port from the JAX package, on the CPU.
 
-    JAX_PLATFORMS=cpu python tests/torch_parity_report.py
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py [--tree TREE] [CASE ...]
+
+CASE is any of codec, bcd, hosvd, svd, pool and color (default: all); `--tree` imports
+`lrf_tpu_torch` from another checkout (for example a `git archive` of the
+parent commit), so that one script reads both sides of a change.
 
 Prints one JSON line per case, with the same inputs the `test_torch_*.py`
 tests use (their tests assert the bounds; this script reports the values):
@@ -15,7 +19,28 @@ tests use (their tests assert the bounds; this script reports the values):
 - hosvd: for each `experiments/data/local7` image (its top-left 512x768),
   the PSNR gap (port - JAX) of `hosvd_encode` at com_ratio 50 and of
   `patch_hosvd_encode` at bpp 0.5, each package decoding its own dict
-  (`tests/test_torch_hosvd_parity.py` holds the bounds).
+  (`tests/test_torch_hosvd_parity.py` holds the bounds);
+- svd: for each `experiments/data/local7` image (its top-left 256x384), the
+  PSNR gap (port - JAX) of `svd_encode` in RGB and YCbCr at q10 and q50,
+  each package decoding its own stream, whether the streams are
+  byte-identical, and, over every matrix the codec factors (the port's X),
+  how many of the well-separated components (|cos| > 0.999 against the JAX
+  package's `svd`) take the JAX package's sign through LAPACK's `?gesdd`
+  (scipy, the port's codec since it factors on the host) and through
+  `torch.linalg.svd`;
+- pool: for odd widths (the chroma area pool's non-divisible branch), the
+  share of `area_resize`'s entries equal to the JAX package's, pooling a
+  (1, 64, W) plane of uniform noise to (32, W // 2) and its transpose;
+- color: for each `experiments/data/local7` image, the share of Y, Cb and
+  Cr entries of the port's `rgb_to_ycbcr` equal to the JAX package's, and
+  of the chain ``fma(c2, m2, fma(c1, m1, c0 * m0))`` per output channel
+  (each step rounded to float32 from float64, the offset added last), which
+  is how XLA's CPU `dot` computes the JAX package's einsum; then, on the
+  Y stacks of `tests/test_torch_fast_init.py::test_randomized_matches_jax`
+  at rank 13, the largest relative gap between the port's and the JAX
+  package's randomized singular values (that test's `rtol=1e-4`), with X
+  from the port's color transform (the test's input) and from the JAX
+  package's.
 
 Not collected by pytest (the file name does not start with `test_`).
 """
@@ -26,7 +51,10 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+ARGS = sys.argv[1:]
+TREE = ARGS[ARGS.index("--tree") + 1] if "--tree" in ARGS else ROOT
+CASES = [a for a in ARGS if a not in ("--tree", TREE)] or ["codec", "bcd", "hosvd", "svd", "pool", "color"]
+sys.path[:0] = [os.path.abspath(TREE), ROOT]
 
 import jax  # noqa: E402
 
@@ -108,7 +136,104 @@ def hosvd_cases():
         print(json.dumps(out))
 
 
+def svd_cases():
+    import scipy.linalg
+
+    from lrf_tpu_torch.ops.color import rgb_to_ycbcr
+    from lrf_tpu_torch.ops.pad import pad_image
+    from lrf_tpu_torch.ops.patch import patchify
+    from lrf_tpu_torch.ops.resample import chroma_downsample
+
+    def psnr(a, b):
+        mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+        return float(10 * np.log10(255.0**2 / mse))
+
+    solvers = {
+        "gesdd": lambda a: scipy.linalg.svd(a, full_matrices=False, lapack_driver="gesdd")[0],
+        "torch": lambda a: torch.linalg.svd(torch.from_numpy(a), full_matrices=False)[0].numpy(),
+    }
+    for path in sorted(glob.glob(os.path.join(ROOT, "experiments/data/local7/*.png"))):
+        img = np.ascontiguousarray(np.asarray(Image.open(path).convert("RGB")).transpose(2, 0, 1)[:, :256, :384])
+        out = {"case": "svd", "image": os.path.basename(path), "size": list(img.shape)}
+        for cs in ("RGB", "YCbCr"):
+            for q in (10, 50):
+                s_port = lrf_tpu_torch.svd_encode(img, quality=q, color_space=cs, device="cpu")
+                s_jax = lrf_tpu.svd_encode(img, quality=q, color_space=cs)
+                out[f"{cs}_q{q}_gap_db"] = (psnr(img, lrf_tpu_torch.svd_decode(s_port, device="cpu"))
+                                            - psnr(img, lrf_tpu.svd_decode(s_jax)))
+                out[f"{cs}_q{q}_identical"] = s_port == s_jax
+        x = torch.from_numpy(img).to(torch.float32)
+        stacks = [patchify(pad_image(x, (8, 8)), (8, 8)), *x]
+        for c in chroma_downsample(rgb_to_ycbcr(x), (0.5, 0.5)):
+            stacks += [patchify(pad_image(c, (8, 8)), (8, 8)), c[0]]
+        for name, solve in solvers.items():
+            well = same = 0
+            for xm in stacks:
+                a = np.ascontiguousarray(xm.numpy())
+                u, u_j = solve(a), np.asarray(jnp.linalg.svd(jnp.asarray(a), full_matrices=False)[0])
+                cos = (u * u_j).sum(0) / (np.linalg.norm(u, axis=0) * np.linalg.norm(u_j, axis=0))
+                sep = np.abs(cos) > 0.999
+                well, same = well + int(sep.sum()), same + int((cos[sep] > 0).sum())
+            out[f"jax_signs_{name}"] = [same, well]
+        print(json.dumps(out), flush=True)
+
+
+def pool_cases():
+    from lrf_tpu.ops import resample as jresample
+    from lrf_tpu_torch.ops import resample
+
+    rng = np.random.default_rng(0)
+    for width in (61, 93, 333, 401, 425, 427, 429, 455, 517, 663):
+        x = (rng.random((1, 64, width)) * 255).astype(np.float32)
+        out = {"case": "pool", "width": width}
+        for name, a, size in (("rows", x, (32, width // 2)), ("columns", x.transpose(0, 2, 1), (width // 2, 32))):
+            a = np.ascontiguousarray(a)
+            got = resample.area_resize(torch.from_numpy(a), size).numpy()
+            out[f"equal_share_{name}"] = float((got == np.asarray(jresample.area_resize(jnp.asarray(a), size))).mean())
+        print(json.dumps(out), flush=True)
+
+
+def color_cases():
+    from lrf_tpu.ops import color as jcolor
+    from lrf_tpu_torch.ops import color
+
+    m = np.asarray(color._RGB_TO_YCBCR, np.float32).astype(np.float64)
+    offset = np.asarray(color._YCBCR_OFFSET, np.float32)
+    for path in sorted(glob.glob(os.path.join(ROOT, "experiments/data/local7/*.png"))):
+        rgb = np.asarray(Image.open(path).convert("RGB")).transpose(2, 0, 1).astype(np.float32)
+        want = np.asarray(jcolor.rgb_to_ycbcr(jnp.asarray(rgb)))
+        port = color.rgb_to_ycbcr(torch.from_numpy(rgb)).numpy()
+        c = rgb.astype(np.float64)
+        fma = []
+        for i in range(3):
+            acc = (c[0] * m[i, 0]).astype(np.float32)
+            for j in (1, 2):
+                acc = (c[j] * m[i, j] + acc).astype(np.float32)
+            fma.append(acc + offset[i])
+        fma = np.stack(fma)
+        out = {"case": "color", "image": os.path.basename(path), "size": list(rgb.shape)}
+        for name, got in (("port", port), ("fma_chain", fma)):
+            out[f"{name}_equal_share_ycbcr"] = [float((got[i] == want[i]).mean()) for i in range(3)]
+        print(json.dumps(out), flush=True)
+
+    from lrf_tpu.ops import svd as jsvd
+    from lrf_tpu_torch.ops import svd as tsvd
+    from lrf_tpu_torch.ops.patch import patchify
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_images import photos
+
+    rgb = photos(3, 96, 128, seed=13).astype(np.float32)
+    out = {"case": "color", "sketch_rank": 13}
+    for name, ycbcr in (("port_x", color.rgb_to_ycbcr(torch.from_numpy(rgb))),
+                        ("jax_x", torch.from_numpy(np.asarray(jcolor.rgb_to_ycbcr(jnp.asarray(rgb)))))):
+        x = patchify(ycbcr[:, :1], (8, 8)).contiguous()
+        s_port = tsvd.truncated_svd(x, 13, method="randomized")[1].numpy()
+        s_jax = np.asarray(jsvd.truncated_svd(jnp.asarray(x.numpy()), 13, method="randomized")[1])
+        out[f"{name}_max_relative_gap"] = float((np.abs(s_port - s_jax) / np.abs(s_jax)).max())
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
-    codec_cases()
-    bcd_cases()
-    hosvd_cases()
+    for case in CASES:
+        globals()[f"{case}_cases"]()

@@ -6,8 +6,11 @@ Imports `lrf_tpu_torch` from TREE (default: this checkout) and prints one
 JSON object: a sha256 per call over the per-image `qmf_encode` streams, the
 batched encode on one device, on a data mesh of `["cpu"] * 8` and on the
 patch meshes 4 x 2 and 1 x 8, the `*_batches` pipeline, and the pixels of
-each decode. Two trees that give the same object encode and decode the same
-bytes on this host.
+each decode; then over odd-size crops (61x93, whose chroma does not halve
+evenly): the `qmf_encode` streams in YCbCr and in RGB, the `svd_encode`
+streams in both color spaces, and the `hosvd_encode` and
+`patch_hosvd_encode` dicts. Two trees that give the same object encode and
+decode the same bytes on this host.
 """
 
 import hashlib
@@ -23,6 +26,20 @@ def _sha(chunks) -> str:
     for c in chunks:
         h.update(c if isinstance(c, bytes) else c.tobytes())
     return h.hexdigest()
+
+
+def _leaves(tree):
+    """The arrays and numbers of a codec's dict, in order, as bytes."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            yield from _leaves(item)
+    elif hasattr(tree, "tobytes") or hasattr(tree, "numpy"):
+        yield (tree.numpy() if hasattr(tree, "numpy") else tree).tobytes()
+    else:
+        yield repr(tree).encode()
 
 
 def digests() -> dict:
@@ -44,6 +61,14 @@ def digests() -> dict:
     halves = [batch[:4], batch[4:]]
     out["batches data 4"] = _sha(s for part in lt.sharded_qmf_encode_batches(
         halves, device=lt.make_mesh(devices=["cpu"] * 4), **kw) for s in part)
+    odd = photos(4, 61, 93, seed=11)
+    for cs in ("YCbCr", "RGB"):
+        out[f"qmf_encode 61x93 {cs}"] = _sha(lt.qmf_encode(img, device="cpu", color_space=cs, **kw) for img in odd)
+        out[f"svd_encode 61x93 {cs}"] = _sha(lt.svd_encode(img, quality=20, color_space=cs, device="cpu")
+                                             for img in odd)
+    out["hosvd_encode 61x93"] = _sha(b for img in odd for b in _leaves(lt.hosvd_encode(img, com_ratio=20, device="cpu")))
+    out["patch_hosvd_encode 61x93"] = _sha(b for img in odd for b in _leaves(
+        lt.patch_hosvd_encode(img, rank=(3, 4, 4, 2), device="cpu")))
     return out
 
 
