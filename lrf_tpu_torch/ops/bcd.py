@@ -30,8 +30,11 @@ import torch
 from lrf_tpu_torch.ops.common import relative_error, safe_divide, soft_thresholding
 from lrf_tpu_torch.ops.svd import (
     gram,
+    gram64,
+    gram_path,
     left_factor,
     pad_rank,
+    rounded_sqrt,
     shared_top_pairs,
     shared_truncated_svd,
     svd_balanced_factors,
@@ -80,7 +83,7 @@ def svd_init_shared(stacks, ranks, num_levels=None, bounds=(None, None), method=
     triplets = shared_truncated_svd(stacks, r_effs, method=method)
     out = []
     for x, rank, (u, s, v) in zip(stacks, ranks, triplets):
-        rs = torch.sqrt(s)
+        rs = rounded_sqrt(s)
         u, v = pad_rank(u * rs[..., None, :], v * rs[..., None, :], rank)
         out.append(_finish_init(x, u, v, num_levels, bounds))
     return out
@@ -252,22 +255,25 @@ def sharded_svd_init(stacks, ranks, bounds, method: str = "gram"):
     device, in row order. Each shard's column Gram and clip penalties are
     summed on the first shard's device, v is computed there, and u stays
     sharded (`u = X v / s` is row-local). `"gram"` takes one batched eigh
-    over every stack's Gram; `"randomized"` takes the range-finder where the
-    stack is tall and the exact Gram elsewhere. Returns per stack
-    `(u_shards, v)`.
+    over every stack's Gram; otherwise `gram_path` picks each stack's path,
+    as for `truncated_svd`. An exact Gram sums the shards' float64 Grams
+    (`gram64`) and rounds once, so its init equals the unsharded one's.
+    Returns per stack `(u_shards, v)`.
     """
     home = stacks[0][0].device
-    grams = [sum_shards([gram(x) for x in shards], home) for shards in stacks]
     shapes = [(sum(x.shape[-2] for x in shards), shards[0].shape[-1]) for shards in stacks]
+    paths = [gram_path(method, m, n) for m, n in shapes]
+    grams = [sum_shards([gram64(x) for x in shards], home).to(shards[0].dtype) if exact
+             else sum_shards([gram(x) for x in shards], home) for shards, (_, exact) in zip(stacks, paths)]
     r_effs = [min(r, m, n) for r, (m, n) in zip(ranks, shapes)]
     if method == "gram":
         pairs = shared_top_pairs(grams, r_effs)
     else:
-        pairs = [top_pairs_from_gram(g, r, method if n <= m else "gram") for g, r, (m, n) in zip(grams, r_effs, shapes)]
+        pairs = [top_pairs_from_gram(g, r, solver) for g, r, (solver, _) in zip(grams, r_effs, paths)]
     out = []
-    for shards, rank, (s, v) in zip(stacks, ranks, pairs):
-        rs = torch.sqrt(s)[..., None, :]
-        us = [left_factor(x, s.to(x.device, non_blocking=True), v.to(x.device, non_blocking=True))
+    for shards, rank, (_, exact), (s, v) in zip(stacks, ranks, paths, pairs):
+        rs = rounded_sqrt(s)[..., None, :]
+        us = [left_factor(x, s.to(x.device, non_blocking=True), v.to(x.device, non_blocking=True), exact)
               * rs.to(x.device, non_blocking=True) for x in shards]
         us = [torch.nn.functional.pad(u, (0, rank - u.shape[-1])) for u in us]
         v = torch.nn.functional.pad(v * rs, (0, rank - v.shape[-1]))

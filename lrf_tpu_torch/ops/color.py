@@ -1,9 +1,17 @@
 """Color-space transforms (full-range BT.601 RGB <-> YCbCr).
 
 PyTorch port of `lrf_tpu/ops/color.py:15-47`: the same constants and the
-same `(..., 3, H, W)` layout. The 3x3 mix is written as three explicit
-multiply-adds per output channel, so the result does not depend on the
-batch shape or on how a matmul library orders a K=3 contraction.
+same `(..., 3, H, W)` layout. The JAX package's 3x3 mix is an einsum, which
+XLA's CPU `dot` computes per output channel as the chain
+``fma(c2, m2, fma(c1, m1, c0 * m0))`` with float32 constants; the offset is
+added after. `_mix` computes that chain in the same order, so its bits are
+the JAX package's. Each fused step is formed in float64 and rounded to
+float32 once: a float32 x float32 product is exact in float64, and each
+step is its own elementwise op, so no compiler contracts or reorders it and
+the card gives the CPU's bits. For integer inputs (the codec's RGB) every
+float64 sum is exact too, so each step is rounded once, as an FMA is.
+Neither `torch.addcmul` nor a fused expression is used: whether those
+become FMAs differs between devices.
 """
 
 from __future__ import annotations
@@ -23,13 +31,23 @@ _YCBCR_TO_RGB = (
 _YCBCR_OFFSET = (0.0, 128.0, 128.0)
 
 
+def _coef(value: float) -> float:
+    """The float32 value of a table constant, as a Python float."""
+    return float(torch.tensor(value, dtype=torch.float32))
+
+
 def _mix(m, x: torch.Tensor) -> torch.Tensor:
-    """`einsum("ij,...jhw->...ihw", m, x)` in float32, as explicit sums."""
+    """`einsum("ij,...jhw->...ihw", m, x)` in float32, in XLA's CPU order:
+    per output channel ``fma(c2, m2, fma(c1, m1, c0 * m0))``, each step
+    rounded to float32 from float64."""
     c = [x[..., j, :, :] for j in range(3)]
+    wide = [cj.to(torch.float64) for cj in c]
     rows = []
     for i in range(3):
-        coef = [torch.tensor(m[i][j], dtype=torch.float32) for j in range(3)]
-        rows.append(c[0] * coef[0] + c[1] * coef[1] + c[2] * coef[2])
+        acc = c[0] * _coef(m[i][0])
+        for j in (1, 2):
+            acc = (wide[j] * _coef(m[i][j]) + acc.to(torch.float64)).to(torch.float32)
+        rows.append(acc)
     return torch.stack(rows, dim=-3)
 
 

@@ -7,7 +7,8 @@ rank-bound and feasible-range helpers of the codec's rank search.
 
 Per-mode singular vectors come from `truncated_svd`'s Gram path: every
 unfolding is short x long, so it takes the eigh of the short-side Gram,
-formed on the input's device. That eigh alone goes to the host:
+formed on the input's device in float32 (not the QMF init's float64 Gram,
+which moved one local7 photograph 2.5 dB off the JAX package). That eigh alone goes to the host:
 `lrf_tpu_torch.ops.svd._lapack_eigh`, LAPACK's `?syevd` through scipy,
 which is the JAX package's CPU `eigh`. The factors then take the JAX
 package's column signs, and the codecs' truncating quantizers, whose
@@ -148,7 +149,7 @@ def _hosvd(x: torch.Tensor, rank, nbatch: int = 0):
     for mode in range(nd):
         xm = _unfold(x, mode, nbatch)
         r = min(xm.shape[-2:]) if ranks[mode] is None else min(ranks[mode], *xm.shape[-2:])
-        u, _, _ = _gram_svd(xm, r, _lapack_eigh)
+        u, _, _ = _gram_svd(xm, r, _lapack_eigh, exact=False)
         factors.append(u)
     core = _multi_mode_product(x, factors, None, True, nbatch)
     return core, factors

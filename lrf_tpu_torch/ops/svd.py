@@ -3,33 +3,56 @@
 PyTorch port of `lrf_tpu/ops/svd.py`:
 
 - `method="gram"` (default): form the Gram on the short side (N x N for an
-  M x N patch stack), eigendecompose it with `torch.linalg.eigh` and recover
-  the long-side factor with one product;
+  M x N patch stack), eigendecompose it and recover the long-side factor
+  with one product;
 - `method="randomized"`: the randomized Gram range-finder of
   `randomized_truncated_svd` (the opt-in `init="fast"`), which replaces the
-  N x N eigh with three K x K ones, K = rank + 10;
+  N x N eigh with three K x K ones (`torch.linalg.eigh`), K = rank + 10;
 - `method="jacobi"`: the Gram path with the batched parallel Jacobi
-  eigensolver of `lrf_tpu_torch.ops.jacobi` in place of
-  `torch.linalg.eigh` (opt-in, as in the JAX package);
+  eigensolver of `lrf_tpu_torch.ops.jacobi` (opt-in, as in the JAX
+  package);
 - `method="svd"`: `torch.linalg.svd`.
 
 `shared_truncated_svd` takes the shared column-Gram eigh for every method,
-as the JAX package does: there the method only picks the eigen-solver,
-`torch.linalg.eigh` or, for "jacobi", `jacobi_eigh`.
+as the JAX package does: there the method only picks the eigen-solver.
 
-`_lapack_eigh` is the eigensolver of the HOSVD codecs' mode SVDs alone
-(`ops/hosvd.py`): LAPACK's `?syevd` through scipy, on the host. It gives
-the JAX package's eigenvector signs, which the codecs' truncating
-quantizers turn into PSNR; no other path takes it. `_lapack_svd` is the
-same for the SVD codec (`models/svd.py`): LAPACK's `?gesdd`, the JAX
-package's CPU `svd`, on the host.
+The exact Gram path (the QMF init: `shared_truncated_svd`, `truncated_svd`'s
+"gram", and "randomized" on wide stacks; `gram_path` decides) is made to
+give one result on every device:
 
-Each method is split into a Gram half (`gram`, `top_pairs_from_gram`) and
+- its Gram, `exact_gram`, is `X^T X` formed from float64 copies and
+  rounded to float32 once, and its long-side product, `left_factor`, is
+  `X v` formed the same way before the division by s. Both are then
+  correctly rounded (but for ties a float64 sum almost never reaches),
+  whatever BLAS, device or row sharding summed them;
+- its eigensolver, `_lapack_eigh`, is LAPACK's `?syevd` through scipy on
+  the host, the JAX package's CPU `eigh`, on every device;
+- its square roots (`rounded_sqrt`) and `left_factor`'s division are taken
+  in float64 and rounded once, so they are correctly rounded on every
+  device: torch's float32 `sqrt` on the CPU is not always, the card's is,
+  and that alone parted the card's init from the CPU's.
+
+So the card's init is the CPU's, bit for bit.
+
+The HOSVD codecs' mode SVDs (`ops/hosvd.py`) take `_lapack_eigh` too, for
+the JAX package's eigenvector signs, but keep float32 Grams and products:
+a float64 mode Gram moved one local7 photograph 2.5 dB off the JAX
+package. `_lapack_svd` is the SVD codec's factorization (`models/svd.py`):
+LAPACK's `?gesdd`, the JAX package's CPU `svd`, on the host. The
+randomized range finder keeps the float32 `gram`, which its test holds
+against the JAX package's float32 sketch.
+
+Each method is split into a Gram half (`gram64`, `top_pairs_from_gram`) and
 a row-local half (`left_factor`), so a caller that holds X in row shards
 can sum the shards' Grams and finish each shard on its own device.
 """
 
 from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+import threading
 
 import numpy as np
 import scipy.linalg
@@ -46,9 +69,56 @@ def _check_method(method: str) -> None:
 
 
 def _gram_eig(g: torch.Tensor, method: str):
-    """Ascending eigendecomposition of a batched Gram: `torch.linalg.eigh`,
-    or `jacobi_eigh` for "jacobi"."""
-    return jacobi_eigh(g) if method == "jacobi" else torch.linalg.eigh(g)
+    """Ascending eigendecomposition of a batched Gram on the exact path:
+    `_lapack_eigh` on every device, or `jacobi_eigh` for "jacobi"."""
+    return jacobi_eigh(g) if method == "jacobi" else _lapack_eigh(g)
+
+
+_BLAS_LOCK = threading.Lock()
+# Grams up to this order are eigendecomposed on one BLAS thread: the init's
+# 64 x 64 gain nothing from more, while the HOSVD codecs' 512 and 768 mode
+# Grams run about twice as fast on eight.
+_ONE_THREAD_MAX_N = 128
+
+
+@functools.cache
+def _openblas_threads():
+    """`(get, set)` of the thread count of scipy's bundled OpenBLAS, or None
+    where scipy links another LAPACK."""
+    try:
+        import scipy.linalg._flapack as flapack
+
+        lib = ctypes.CDLL(flapack.__file__)
+        return lib.scipy_openblas_get_num_threads, lib.scipy_openblas_set_num_threads
+    except (ImportError, OSError, AttributeError):
+        return None
+
+
+@contextlib.contextmanager
+def _host_lapack(one_thread: bool):
+    """One host LAPACK loop at a time (`_BLAS_LOCK`), with `one_thread`
+    on one thread of scipy's OpenBLAS, restored after.
+
+    On a many-core host OpenBLAS splits each small `?syevd` over all cores
+    for no gain in wall time, and its threads then spin after every call,
+    taking the cores from the native serializer that follows the init. On
+    the CPU tests' host the bits did not depend on the thread count. The
+    thread count is global, so every loop of this module takes the lock and
+    none runs on a count that another set. scipy's wrappers hold the GIL
+    through each call, so the loops of host threads (a data mesh's rows)
+    take turns with or without the lock."""
+    with _BLAS_LOCK:
+        threads = _openblas_threads() if one_thread else None
+        if threads is None:
+            yield
+            return
+        get, set_ = threads
+        before = get()
+        set_(1)
+        try:
+            yield
+        finally:
+            set_(before)
 
 
 def _lapack_eigh(g: torch.Tensor):
@@ -66,8 +136,9 @@ def _lapack_eigh(g: torch.Tensor):
     flat = host.reshape(-1, *host.shape[-2:])
     evals = np.empty(flat.shape[:-1], flat.dtype)
     evecs = np.empty_like(flat)
-    for i, a in enumerate(flat):
-        evals[i], evecs[i] = scipy.linalg.eigh(a, driver="evd")
+    with _host_lapack(flat.shape[-1] <= _ONE_THREAD_MAX_N):
+        for i, a in enumerate(flat):
+            evals[i], evecs[i] = scipy.linalg.eigh(a, driver="evd")
     return (torch.from_numpy(evals.reshape(host.shape[:-1])).to(g.device),
             torch.from_numpy(evecs.reshape(host.shape)).to(g.device))
 
@@ -89,8 +160,9 @@ def _lapack_svd(a: torch.Tensor):
     u = np.empty((flat.shape[0], flat.shape[1], k), flat.dtype)
     s = np.empty((flat.shape[0], k), flat.dtype)
     vh = np.empty((flat.shape[0], k, flat.shape[2]), flat.dtype)
-    for i, m in enumerate(flat):
-        u[i], s[i], vh[i] = scipy.linalg.svd(m, full_matrices=False, lapack_driver="gesdd")
+    with _host_lapack(False):
+        for i, m in enumerate(flat):
+            u[i], s[i], vh[i] = scipy.linalg.svd(m, full_matrices=False, lapack_driver="gesdd")
     lead = host.shape[:-2]
     return tuple(torch.from_numpy(t.reshape(lead + t.shape[1:])).to(a.device) for t in (u, s, vh))
 
@@ -99,22 +171,56 @@ def _tiny_root(dtype) -> float:
     return torch.finfo(dtype).tiny ** 0.5
 
 
+def rounded_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """`sqrt(x)` correctly rounded to x's dtype on every device: taken in
+    float64 and rounded once, which for float32 gives the correctly rounded
+    float32 root (53 >= 2 * 24 + 2 bits), as numpy's, the JAX package's and
+    the card's float32 `sqrt` do. torch's float32 `sqrt` on the CPU is not
+    always correctly rounded."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def _top_from_eigh(evals, evecs, r: int):
     """`(s, v)`: the top `r` pairs of an ascending eigendecomposition of a
     column Gram, as singular values and right singular vectors."""
     evals = torch.flip(evals, dims=(-1,))[..., :r]
     v = torch.flip(evecs, dims=(-1,))[..., :, :r]
-    return torch.sqrt(torch.clamp(evals, min=0.0)), v
+    return rounded_sqrt(torch.clamp(evals, min=0.0)), v
 
 
-def left_factor(x: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """`u = X v / s` (row-local: each row of X gives its row of u)."""
-    return torch.matmul(x, v) / torch.clamp(s, min=_tiny_root(x.dtype))[..., None, :]
+def left_factor(x: torch.Tensor, s: torch.Tensor, v: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """`u = X v / s` (row-local: each row of X gives its row of u). With
+    `exact` (the exact path), `X v` is formed from float64 copies and
+    rounded to X's dtype once, so every BLAS and device gives the same
+    bits; else it is taken in X's dtype (the randomized range finder's and
+    the HOSVD codecs'). The division is taken in float64 and rounded once:
+    the correctly rounded quotient of the two rounded operands, as the
+    CPU's float32 division gives it, on every device."""
+    if exact:
+        xv = torch.matmul(x.to(torch.float64), v.to(torch.float64)).to(x.dtype)
+    else:
+        xv = torch.matmul(x, v)
+    s = torch.clamp(s, min=_tiny_root(x.dtype))[..., None, :]
+    return (xv.to(torch.float64) / s.to(torch.float64)).to(x.dtype)
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
-    """Column Gram `X^T X` of `(..., M, N)`."""
+    """Column Gram `X^T X` of `(..., M, N)` in X's dtype (the randomized
+    range finder's and the HOSVD codecs')."""
     return torch.matmul(x.transpose(-1, -2), x)
+
+
+def gram64(x: torch.Tensor) -> torch.Tensor:
+    """Column Gram `X^T X` of `(..., M, N)` formed from float64 copies, not
+    rounded: row shards' `gram64` summed in shard order, then rounded once,
+    give `exact_gram` of the whole stack."""
+    x = x.to(torch.float64)
+    return torch.matmul(x.transpose(-1, -2), x)
+
+
+def exact_gram(x: torch.Tensor) -> torch.Tensor:
+    """The exact path's column Gram: `gram64` rounded to X's dtype once."""
+    return gram64(x).to(x.dtype)
 
 
 def _randomized_from_gram(g: torch.Tensor, r: int, oversample: int = 10, seed: int = 0):
@@ -161,7 +267,7 @@ def randomized_truncated_svd(x: torch.Tensor, rank: int, oversample: int = 10, s
     if n > m:
         raise ValueError("the randomized range-finder expects tall patch stacks (M >= N)")
     s, v = _randomized_from_gram(gram(x), min(rank, m, n), oversample, seed)
-    return left_factor(x, s, v), s, v
+    return left_factor(x, s, v, exact=False), s, v
 
 
 def truncated_svd(x: torch.Tensor, rank: int, method: str = "gram"):
@@ -177,21 +283,42 @@ def truncated_svd(x: torch.Tensor, rank: int, method: str = "gram"):
     if method == "svd":
         u, s, vh = torch.linalg.svd(x, full_matrices=False)
         return u[..., :, :r], s[..., :r], vh.transpose(-1, -2)[..., :, :r]
+    solver, exact = gram_path(method, m, n)
+    if not exact:
+        return randomized_truncated_svd(x, r)
+    return _gram_svd(x, r, lambda g: _gram_eig(g, solver))
+
+
+def gram_path(method: str, m: int, n: int) -> tuple[str, bool]:
+    """`(solver, exact)`: how `method` factors an M x N stack by a Gram.
+
+    "randomized" on a tall stack takes the range finder on the float32
+    `gram` with `left_factor(exact=False)`: `("randomized", False)`. Every
+    other stack takes the exact path (`exact_gram`, or shards' `gram64`
+    summed and rounded once; `_gram_eig`; `left_factor`), with "jacobi"'s
+    eigensolver or the host's LAPACK: `("jacobi" or "gram", True)`. A wide
+    stack takes it under "randomized" too, where the sketch saves nothing.
+    """
+    if method not in ("gram", "jacobi", "randomized"):
+        raise ValueError(f"a Gram path takes 'gram', 'jacobi' or 'randomized', not {method!r}")
     if method == "randomized" and n <= m:
-        s, v = _randomized_from_gram(gram(x), r)
-        return left_factor(x, s, v), s, v
-    return _gram_svd(x, r, lambda g: _gram_eig(g, method))
+        return "randomized", False
+    return ("jacobi" if method == "jacobi" else "gram"), True
 
 
-def _gram_svd(x: torch.Tensor, r: int, eig):
+def _gram_svd(x: torch.Tensor, r: int, eig, exact: bool = True):
     """`truncated_svd`'s Gram path with the eigensolver `eig`: the eigh of
-    the short-side Gram, the long-side factor by one product."""
+    the short-side Gram, the long-side factor by one product. `exact`:
+    Gram and product from float64 copies (`exact_gram`, `left_factor`);
+    else in X's dtype (the HOSVD codecs')."""
+    form_gram = exact_gram if exact else gram
     if x.shape[-1] <= x.shape[-2]:
-        s, v = _top_from_eigh(*eig(gram(x)), r)
-        return left_factor(x, s, v), s, v
+        s, v = _top_from_eigh(*eig(form_gram(x)), r)
+        return left_factor(x, s, v, exact), s, v
     # Gram on the short (row) side: G = X X^T, V = X^T U / s.
-    s, u = _top_from_eigh(*eig(torch.matmul(x, x.transpose(-1, -2))), r)
-    return u, s, left_factor(x.transpose(-1, -2), s, u)
+    xt = x.transpose(-1, -2)
+    s, u = _top_from_eigh(*eig(form_gram(xt)), r)
+    return u, s, left_factor(xt, s, u, exact)
 
 
 def shared_truncated_svd(stacks, ranks, method: str = "gram"):
@@ -206,13 +333,14 @@ def shared_truncated_svd(stacks, ranks, method: str = "gram"):
     """
     _check_method(method)
     ranks = [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)]
-    pairs = shared_top_pairs([gram(x) for x in stacks], ranks, method)
+    pairs = shared_top_pairs([exact_gram(x) for x in stacks], ranks, method)
     return [(left_factor(x, s, v), s, v) for x, (s, v) in zip(stacks, pairs)]
 
 
 def shared_top_pairs(grams, ranks, method: str = "gram"):
     """The top `r` pairs `(s, v)` of several `(B_i, N, N)` Grams of one N,
-    through one batched eigh (`jacobi_eigh` for "jacobi")."""
+    through one batched eigh (`_lapack_eigh`, or `jacobi_eigh` for
+    "jacobi")."""
     n = grams[0].shape[-1]
     if any(g.shape[-1] != n for g in grams):
         raise ValueError("shared_truncated_svd needs stacks of one width N")
@@ -245,5 +373,5 @@ def svd_balanced_factors(x: torch.Tensor, rank: int, method: str = "gram"):
     """
     r_eff = min(rank, x.shape[-2], x.shape[-1])
     u, s, v = truncated_svd(x, r_eff, method=method)
-    rs = torch.sqrt(s)
+    rs = rounded_sqrt(s)
     return pad_rank(u * rs[..., None, :], v * rs[..., None, :], rank)

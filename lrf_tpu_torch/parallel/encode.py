@@ -10,7 +10,8 @@ downsample, pad, patchify, then the factorization of each channel's
   merged into ONE `(2B, M, N)` BCD batch;
 - `init="svd"` (default): one batched eigh over all channels' `(N, N)`
   Grams initializes every stack (`svd_init_shared`), when every stack is
-  tall (M >= N); `init="fast"`: the randomized range-finder
+  tall (M >= N); Grams in float64 rounded once, the eigh on the host's
+  LAPACK on every device (`ops/svd.py`); `init="fast"`: the randomized range-finder
   (`ops/svd.py`), one per stack, three K x K eighs in place of the N x N
   one, at a small rate-distortion cost (the opt-in throughput init);
 - the BCD loop goes through `lrf_tpu_torch.ops.bcd_kernel.bcd`: the CUDA

@@ -13,8 +13,10 @@ A device may appear more than once (the CPU has one torch device, and one
 card can stand in for several), so the cross-shard code runs anywhere.
 
 `Mesh.map_rows` runs per-row work on one host thread per data row, so a
-row whose ops wait on the host (cuSOLVER's eigh, pageable copies) does not
-hold back the other rows' devices.
+row whose ops wait on the host (pageable copies, a kernel's end) does not
+hold back the other rows' devices. The exact init's LAPACK eigh is the
+exception: scipy holds the GIL through each call, so the rows take turns
+on their Grams (`ops/svd.py::_host_lapack`).
 """
 
 from __future__ import annotations

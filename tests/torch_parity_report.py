@@ -12,7 +12,10 @@ tests use (their tests assert the bounds; this script reports the values):
 - codec: for kodim01 crops at q10/q20, pixels of one stream decoded by both
   packages (max |diff| and share of differing values, both directions),
   the PSNR of each package's own encode, and stream sizes (the JAX package
-  with its zlib coder);
+  with its zlib coder); then for each `experiments/data/local7` image (its
+  top-left 256x384) at q10, q25 and q40, the PSNR gap (port - JAX) of each
+  package's own stream and whether the streams are byte-identical (both
+  with their default "best" coder), and a summary line of those 21 points;
 - bcd: from one JAX init, the share of factor entries the port's plain BCD
   shares with `lrf_tpu.ops.bcd` and with `bcd_pallas(interpret=True)`, and
   the loss difference;
@@ -38,9 +41,13 @@ tests use (their tests assert the bounds; this script reports the values):
   is how XLA's CPU `dot` computes the JAX package's einsum; then, on the
   Y stacks of `tests/test_torch_fast_init.py::test_randomized_matches_jax`
   at rank 13, the largest relative gap between the port's and the JAX
-  package's randomized singular values (that test's `rtol=1e-4`), with X
-  from the port's color transform (the test's input) and from the JAX
-  package's.
+  package's randomized singular values (the test's bound before Weyl's was
+  `rtol=1e-4`) and the largest |s_i² - s_jax,i²| / s_jax,0² (the test's
+  bound: 2·M·2⁻²⁴), with X from the port's color transform (the test's
+  input) and from the JAX package's; and, on 65,536 seeded float32 values
+  spread over 2^-30..2^40, the share of torch's float32 `sqrt`, of the
+  init's `ops/svd.py::rounded_sqrt` and of the JAX package's `sqrt` equal
+  to numpy's (the correctly rounded root).
 
 Not collected by pytest (the file name does not start with `test_`).
 """
@@ -92,6 +99,21 @@ def codec_cases():
             out["bytes_jax"], out["bytes_port"] = len(s_jax), len(s_port)
             out["bytes_identical"] = s_jax == s_port
             print(json.dumps(out))
+    set_fiber_coder("best")  # both packages' default coder, so that equal factors give equal bytes
+    gaps, same = [], 0
+    for path in sorted(glob.glob(os.path.join(ROOT, "experiments/data/local7/*.png"))):
+        crop = np.ascontiguousarray(np.asarray(Image.open(path).convert("RGB")).transpose(2, 0, 1)[:, :256, :384])
+        for q in (10, 25, 40):
+            s_jax = lrf_tpu.qmf_encode(crop, quality=q)
+            s_port = lrf_tpu_torch.qmf_encode(crop, quality=q, device="cpu")
+            gap = (float(lrf_tpu_torch.psnr(crop, lrf_tpu_torch.qmf_decode(s_port, device="cpu")))
+                   - float(lrf_tpu.psnr(crop, lrf_tpu.qmf_decode(s_jax))))
+            gaps.append(gap)
+            same += s_jax == s_port
+            print(json.dumps({"case": "codec", "image": os.path.basename(path), "size": [256, 384], "quality": q,
+                              "psnr_gap_port_minus_jax": gap, "bytes_identical": s_jax == s_port}), flush=True)
+    print(json.dumps({"case": "codec", "size": [256, 384], "points": len(gaps), "bytes_identical": same,
+                      "psnr_gap_min": min(gaps), "psnr_gap_max": max(gaps)}), flush=True)
 
 
 def bcd_cases():
@@ -231,6 +253,19 @@ def color_cases():
         s_port = tsvd.truncated_svd(x, 13, method="randomized")[1].numpy()
         s_jax = np.asarray(jsvd.truncated_svd(jnp.asarray(x.numpy()), 13, method="randomized")[1])
         out[f"{name}_max_relative_gap"] = float((np.abs(s_port - s_jax) / np.abs(s_jax)).max())
+        s2, sj2 = s_port.astype(np.float64) ** 2, s_jax.astype(np.float64) ** 2
+        out[f"{name}_max_square_gap_over_s0_square"] = float((np.abs(s2 - sj2) / sj2[:, :1]).max())
+    out["weyl_bound"] = 2 * x.shape[-2] * 2.0**-24
+    print(json.dumps(out), flush=True)
+
+    rng = np.random.default_rng(0)
+    v = (rng.random(1 << 16) * 2.0 ** rng.integers(-30, 40, 1 << 16)).astype(np.float32)
+    want = np.sqrt(v)
+    out = {"case": "color", "sqrt_values": len(v)}
+    for name, got in (("torch_sqrt", torch.sqrt(torch.from_numpy(v)).numpy()),
+                      ("rounded_sqrt", tsvd.rounded_sqrt(torch.from_numpy(v)).numpy()),
+                      ("jax_sqrt", np.asarray(jnp.sqrt(jnp.asarray(v))))):
+        out[f"{name}_equal_share"] = float((got == want).mean())
     print(json.dumps(out), flush=True)
 
 
