@@ -41,8 +41,10 @@ Phases, each of which raises (exit code != 0) when a check fails:
    whose BCD is the plain version; its encode rate is the best of three
    calls timed after two untimed ones; the init's parts beside it: the
    float64 Grams' device ms and the host's LAPACK eigh (`?syevd`, the
-   exact init's eigensolver on every device) against `torch.linalg.eigh`
-   (cuSOLVER) on the same Grams;
+   exact init's eigensolver on every device, one native batch over the
+   host's cores), which must equal the scipy loop's bits, against the
+   scipy loop, `torch.linalg.eigh` (cuSOLVER) on the same Grams and the
+   batch on one worker, with its worker count;
 5. per-image round trips of the other codec variants on the card, each
    held against the same encode on the CPU at a small size; each 512x768
    encode launches `bcd_grid` once (RGB patches, RGB no-patch) or three
@@ -70,8 +72,9 @@ Phases, each of which raises (exit code != 0) when a check fails:
    `cuda:0` twice on a one-card machine), each row dispatched from its own
    host thread: streams equal to the one device's (or all but 2, those
    within 0.2 dB), two cluster-kernel launches per shard, its encode time
-   beside one card's in the same run, and on several rows a
-   `torch.profiler` trace of each device's kernel span; a patch mesh of 2
+   beside one card's in the same run, and on several rows each row's init
+   eigh windows on one host clock (how many overlap another row's)
+   and a `torch.profiler` trace of each device's kernel span; a patch mesh of 2
    (the cards, or `cuda:0` twice) on 8 images: no kernel launch, its init
    (U, V before the sweeps) against one device's (printed), PSNR
    within 0.2 dB of the unsharded encode, no synchronizing call inside
@@ -189,6 +192,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -653,14 +657,28 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     ranks = metadata["rank"]
     init_ms = cuda_ms(lambda: bcd_mod.svd_init_shared([stacks[0], merged], ranks[:2], bounds=BOUNDS), 3)
     # The init's parts: the float64 Grams on the card, then the host's LAPACK
-    # eigh of them (the Grams to the host and back included) against
-    # cuSOLVER's `torch.linalg.eigh` of the same Grams, best of 3 each.
+    # eigh of them (the Grams to the host and back included): the native
+    # batch over the host's cores, against the scipy loop, cuSOLVER's
+    # `torch.linalg.eigh` of the same Grams and the batch on one worker,
+    # best of 3 each. The batch must give the scipy loop's bits.
+    from lrf_tpu_torch.native import lapack_batch
     from lrf_tpu_torch.ops import svd
 
     gram_ms = cuda_ms(lambda: [svd.exact_gram(x) for x in (stacks[0], merged)], 3)
     grams = torch.cat([svd.exact_gram(x) for x in (stacks[0], merged)])
-    eigh_s, _ = best_s(lambda: svd._lapack_eigh(grams))
+    eigh_s, native = best_s(lambda: svd._lapack_eigh(grams))
+    plain_s, plain = best_s(lambda: svd._lapack_eigh_plain(grams))
+    def one_worker_eigh():
+        with svd._host_lapack(True):
+            w, v = lapack_batch.syevd_batch(grams.cpu().numpy(), 1)
+        return torch.from_numpy(w).cuda(), torch.from_numpy(v).cuda()
+
+    one_worker_s, one_worker = best_s(one_worker_eigh)
     cusolver_s, _ = best_s(lambda: torch.linalg.eigh(grams))
+    for what, got in (("the native batch", native), ("the native batch on one worker", one_worker)):
+        check(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, plain)),
+              f"{what} parts from the scipy loop's ?syevd bits on the {len(grams)} bench Grams")
+    workers = min(len(grams), lapack_batch.instances())
     # host CPU of the eigh, and of this process in the 200 ms after it (a
     # BLAS whose threads spin after a call takes the serializer's cores)
     c0 = time.process_time()
@@ -698,9 +716,11 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
           f"downsample, pad, patchify) {front_ms:.3f} ms, init (Grams + eigh of {b + 2 * b} 64x64 matrices + "
           f"signs) {init_ms:.3f} ms; host part (fetch + native serializer) {enc_best * 1e3 - device_ms:.2f} ms")
     print(f"main path [{label}]: the init's float64 Grams {gram_ms:.3f} device ms; its eigh on the host's LAPACK "
-          f"(?syevd, copies included) {eigh_s * 1e3:.3f} ms wall, against torch.linalg.eigh (cuSOLVER) of the same "
-          f"{len(grams)} Grams {cusolver_s * 1e3:.3f} ms wall; whole encode {enc_best * 1e3:.2f} ms; the eigh's host "
-          f"CPU {eigh_cpu_ms:.1f} ms, and {after_cpu_ms:.1f} ms in the 200 ms after it", flush=True)
+          f"(?syevd as one native batch on {workers} workers, each on its own OpenBLAS instance; copies included) {eigh_s * 1e3:.3f} ms wall, equal bit "
+          f"for bit to the scipy loop's {plain_s * 1e3:.3f} ms wall; the batch on one worker {one_worker_s * 1e3:.3f} "
+          f"ms wall; torch.linalg.eigh (cuSOLVER) of the same {len(grams)} Grams {cusolver_s * 1e3:.3f} ms wall; "
+          f"whole encode {enc_best * 1e3:.2f} ms; the eigh's host CPU {eigh_cpu_ms:.1f} ms, and {after_cpu_ms:.1f} "
+          f"ms in the 200 ms after it", flush=True)
     return dict(launches=launches, enc_ms=enc_best * 1e3, enc_all_ms=[t * 1e3 for t in enc_s], bench=bench,
                 device_ms=device_ms, streams=streams, dec=dec, gram_ms=gram_ms, eigh_ms=eigh_s * 1e3,
                 cusolver_ms=cusolver_s * 1e3)
@@ -1119,6 +1139,29 @@ def patch_mesh_init(torch, lt, images, mesh) -> str:
     return "; ".join(out)
 
 
+@contextlib.contextmanager
+def init_eigh_windows(out: list):
+    """Within the block, each call of the exact init's host eigh
+    (`ops/svd.py::_lapack_eigh`, reached through `_gram_eig`) appends
+    `(thread name, start, end)` on the host's `perf_counter`."""
+    from lrf_tpu_torch.ops import svd
+
+    fn = svd._lapack_eigh
+
+    def wrapped(g, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(g, *args, **kwargs)
+        finally:
+            out.append((threading.current_thread().name, t0, time.perf_counter()))
+
+    svd._lapack_eigh = wrapped
+    try:
+        yield
+    finally:
+        svd._lapack_eigh = fn
+
+
 def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
     """Phase 9: data and patch meshes, and two processes."""
     import socket
@@ -1150,6 +1193,19 @@ def phase_mesh(torch, lt, bk, seed: int, label: str, streams) -> None:
               f"launches {launches['bcd_cluster'] // rows} per shard ({rows} shards); encode {t * 1e3:.2f} ms (best of 3) "
               f"against {one_s * 1e3:.2f} ms on one card in this run ({one_s / t:.3f}x)", flush=True)
         if rows > 1:
+            windows = []
+            with init_eigh_windows(windows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lt.sharded_qmf_encode_batch(images, quality=10, device=mesh)
+                call_ms = (time.perf_counter() - t0) * 1e3
+            check(len({w[0] for w in windows}) == rows, f"{mesh}: init eighs on {len(windows)} threads, not {rows}")
+            spans = ", ".join(f"{name} {(a - t0) * 1e3:.2f}-{(b - t0) * 1e3:.2f}"
+                              for name, a, b in sorted(windows, key=lambda w: w[1]))
+            shared = sum(any(o[0] != w[0] and o[1] < w[2] and w[1] < o[2] for o in windows) for w in windows)
+            print(f"mesh [{label}]: data mesh {mesh}: the rows' init eighs (ms from the encode's start, one host "
+                  f"clock; the call {call_ms:.2f} ms): {spans}; {shared} of {len(windows)} overlap another row's",
+                  flush=True)
             with lt.trace(os.path.join(HERE, "chiprun_out", "traces")) as prof:
                 lt.sharded_qmf_encode_batch(images, quality=10, device=mesh)
             for line in device_spans(torch, prof):

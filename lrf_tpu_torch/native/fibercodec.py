@@ -77,7 +77,7 @@ _SIGNATURES = {
 def _find_cxx() -> str:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("the native fiber coder needs g++ on PATH to build")
+        raise RuntimeError("the port's native libraries need g++ on PATH to build")
     return cxx
 
 
@@ -90,13 +90,18 @@ def _has_header(cxx: str, header: str) -> bool:
     return proc.returncode == 0
 
 
-class NativeLib:
-    """The compiled coder library, built and loaded on first use.
+class GxxLib:
+    """A C++ source of this folder compiled with g++ at first use into
+    `_build/<stem>_<hash of source and command>.so` and loaded through
+    ctypes with `signatures` (name -> (restype, argtypes)).
 
-    `defines` are extra compiler flags; `-DLRF_NO_LIBDEFLATE` builds the
-    zlib-only library even where libdeflate is installed (the build a host
-    without `libdeflate.h` gets), so both builds can be tested on one host.
+    `defines` are extra compiler flags. Subclasses name the source, the
+    stem, the signatures and the libraries to link (`link_libs`).
     """
+
+    source: Path
+    stem: str
+    signatures: dict
 
     def __init__(self, defines: tuple[str, ...] = ()):
         self.defines = tuple(defines)
@@ -105,19 +110,19 @@ class NativeLib:
         self._path: Optional[Path] = None
         self._lock = threading.Lock()
 
+    def link_libs(self, cxx: str) -> list[str]:
+        return ["-lpthread"]
+
     def command(self, out: str) -> list[str]:
         cxx = _find_cxx()
-        libs = ["-lz", "-lpthread"]
-        if "-DLRF_NO_LIBDEFLATE" not in self.defines and _has_header(cxx, "libdeflate.h"):
-            libs.append("-ldeflate")
-        return [cxx, *CXX_FLAGS, *self.defines, "-o", out, str(SOURCE), *libs]
+        return [cxx, *CXX_FLAGS, *self.defines, "-o", out, str(self.source), *self.link_libs(cxx)]
 
     def library_path(self) -> Path:
-        """`_build/libfibercodec_<hash of source and command>.so`."""
+        """`_build/<stem>_<hash of source and command>.so`."""
         if self._path is None:
             h = hashlib.sha256(" ".join(self.command("OUT")).encode() + b"\0")
-            h.update(SOURCE.read_bytes())
-            self._path = BUILD_DIR / f"libfibercodec_{h.hexdigest()[:16]}.so"
+            h.update(self.source.read_bytes())
+            self._path = BUILD_DIR / f"{self.stem}_{h.hexdigest()[:16]}.so"
         return self._path
 
     def build(self) -> Path:
@@ -132,7 +137,7 @@ class NativeLib:
             proc = subprocess.run(self.command(tmp), capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"building the native fiber coder failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                    f"building {self.source.name} failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
                 )
             os.replace(tmp, path)
         finally:
@@ -145,12 +150,31 @@ class NativeLib:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
-                for name, (restype, argtypes) in _SIGNATURES.items():
+                for name, (restype, argtypes) in self.signatures.items():
                     fn = getattr(lib, name)
                     fn.restype = restype
                     fn.argtypes = argtypes
                 self._lib = lib
             return self._lib
+
+
+class NativeLib(GxxLib):
+    """The compiled coder library, built and loaded on first use.
+
+    `-DLRF_NO_LIBDEFLATE` in `defines` builds the zlib-only library even
+    where libdeflate is installed (the build a host without `libdeflate.h`
+    gets), so both builds can be tested on one host.
+    """
+
+    source = SOURCE
+    stem = "libfibercodec"
+    signatures = _SIGNATURES
+
+    def link_libs(self, cxx: str) -> list[str]:
+        libs = ["-lz", "-lpthread"]
+        if "-DLRF_NO_LIBDEFLATE" not in self.defines and _has_header(cxx, "libdeflate.h"):
+            libs.append("-ldeflate")
+        return libs
 
     def backends(self) -> tuple[str, ...]:
         """The compressor backends compiled in: ("zlib",) or ("zlib", "deflate")."""

@@ -9,8 +9,9 @@ Per-mode singular vectors come from `truncated_svd`'s Gram path: every
 unfolding is short x long, so it takes the eigh of the short-side Gram,
 formed on the input's device in float32 (not the QMF init's float64 Gram,
 which moved one local7 photograph 2.5 dB off the JAX package). That eigh alone goes to the host:
-`lrf_tpu_torch.ops.svd._lapack_eigh`, LAPACK's `?syevd` through scipy,
-which is the JAX package's CPU `eigh`. The factors then take the JAX
+`lrf_tpu_torch.ops.svd._lapack_eigh`, LAPACK's `?syevd` from scipy's
+`cython_lapack` in one native call per batch, which is the JAX package's
+CPU `eigh`. The factors then take the JAX
 package's column signs, and the codecs' truncating quantizers, whose
 half-step bias follows the signs, give the JAX package's PSNR: with
 `torch.linalg.eigh` the patch codec read up to 2 dB apart on photographs.

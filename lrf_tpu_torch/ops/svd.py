@@ -25,8 +25,12 @@ give one result on every device:
   `X v` formed the same way before the division by s. Both are then
   correctly rounded (but for ties a float64 sum almost never reaches),
   whatever BLAS, device or row sharding summed them;
-- its eigensolver, `_lapack_eigh`, is LAPACK's `?syevd` through scipy on
-  the host, the JAX package's CPU `eigh`, on every device;
+- its eigensolver, `_lapack_eigh`, is LAPACK's `?syevd` on the host, the
+  JAX package's CPU `eigh`, on every device: the routine that
+  `scipy.linalg.cython_lapack` exports and jaxlib calls, run over the
+  whole batch in one native call (`native/lapack_batch.py`) that releases
+  the GIL and splits the small Grams over the host's cores, each worker on
+  an OpenBLAS instance of its own;
 - its square roots (`rounded_sqrt`) and `left_factor`'s division are taken
   in float64 and rounded once, so they are correctly rounded on every
   device: torch's float32 `sqrt` on the CPU is not always, the card's is,
@@ -50,14 +54,14 @@ can sum the shards' Grams and finish each shard on its own device.
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import functools
 import threading
 
 import numpy as np
 import scipy.linalg
 import torch
 
+from lrf_tpu_torch.native import lapack_batch
+from lrf_tpu_torch.native.lapack_batch import openblas_threads as _openblas_threads
 from lrf_tpu_torch.ops.jacobi import jacobi_eigh
 
 _METHODS = ("gram", "jacobi", "randomized", "svd")
@@ -74,57 +78,112 @@ def _gram_eig(g: torch.Tensor, method: str):
     return jacobi_eigh(g) if method == "jacobi" else _lapack_eigh(g)
 
 
-_BLAS_LOCK = threading.Lock()
-# Grams up to this order are eigendecomposed on one BLAS thread: the init's
-# 64 x 64 gain nothing from more, while the HOSVD codecs' 512 and 768 mode
-# Grams run about twice as fast on eight.
+# Grams up to this order are eigendecomposed on one BLAS thread each, with
+# the batch split over the host's cores: the init's 64 x 64 gain nothing
+# from OpenBLAS's threads, while the HOSVD codecs' 512 and 768 mode Grams
+# run about twice as fast on eight.
 _ONE_THREAD_MAX_N = 128
 
 
-@functools.cache
-def _openblas_threads():
-    """`(get, set)` of the thread count of scipy's bundled OpenBLAS, or None
-    where scipy links another LAPACK."""
-    try:
-        import scipy.linalg._flapack as flapack
+class _BlasGate:
+    """Who runs host LAPACK, and on how many OpenBLAS threads.
 
-        lib = ctypes.CDLL(flapack.__file__)
-        return lib.scipy_openblas_get_num_threads, lib.scipy_openblas_set_num_threads
-    except (ImportError, OSError, AttributeError):
-        return None
+    OpenBLAS's thread count is process-wide, so the gate has two modes.
+    `one_thread()` holders (the eigh of Grams up to `_ONE_THREAD_MAX_N`)
+    share it: the first one in sets the count to 1, and the last one out
+    restores the count it found, so a data mesh's rows run their init
+    eighs side by side. A `many_threads()` holder (`_lapack_svd`, the eigh
+    of larger Grams) holds it alone, on the count the process had. Once a
+    many-thread holder waits, new one-thread holders wait behind it, so it
+    is not starved. `mode` is "one_thread", "many_threads" or None.
+    """
 
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._sharers = 0
+        self._alone = False
+        self._waiting = 0
+        self._found = None
 
-@contextlib.contextmanager
-def _host_lapack(one_thread: bool):
-    """One host LAPACK loop at a time (`_BLAS_LOCK`), with `one_thread`
-    on one thread of scipy's OpenBLAS, restored after.
+    @property
+    def mode(self):
+        with self._cond:
+            return "many_threads" if self._alone else ("one_thread" if self._sharers else None)
 
-    On a many-core host OpenBLAS splits each small `?syevd` over all cores
-    for no gain in wall time, and its threads then spin after every call,
-    taking the cores from the native serializer that follows the init. On
-    the CPU tests' host the bits did not depend on the thread count. The
-    thread count is global, so every loop of this module takes the lock and
-    none runs on a count that another set. scipy's wrappers hold the GIL
-    through each call, so the loops of host threads (a data mesh's rows)
-    take turns with or without the lock."""
-    with _BLAS_LOCK:
-        threads = _openblas_threads() if one_thread else None
-        if threads is None:
-            yield
-            return
-        get, set_ = threads
-        before = get()
-        set_(1)
+    @contextlib.contextmanager
+    def one_thread(self):
+        get, set_ = _openblas_threads()
+        with self._cond:
+            self._cond.wait_for(lambda: not self._alone and not self._waiting)
+            if not self._sharers:
+                self._found = get()
+                set_(1)
+            self._sharers += 1
         try:
             yield
         finally:
-            set_(before)
+            with self._cond:
+                self._sharers -= 1
+                if not self._sharers:
+                    set_(self._found)
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def many_threads(self):
+        with self._cond:
+            self._waiting += 1
+            try:
+                self._cond.wait_for(lambda: not self._alone and not self._sharers)
+            finally:
+                self._waiting -= 1
+                self._cond.notify_all()
+            self._alone = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._alone = False
+                self._cond.notify_all()
+
+
+_GATE = _BlasGate()
+
+
+def _host_lapack(one_thread: bool):
+    """The gate for one host LAPACK loop: shared on one OpenBLAS thread
+    (`one_thread`), or alone on the process's count.
+
+    On a many-core host OpenBLAS splits each small `?syevd` over all cores
+    for no gain in wall time, and its threads then spin after every call,
+    taking the cores from the native serializer that follows the init; on
+    one thread each, the small Grams' batch is split over the cores by the
+    native batch instead (its private copies of the OpenBLAS are always on
+    one thread). On the CPU tests' host the bits of Grams up to 192 x 192
+    did not depend on OpenBLAS's thread count, but those of 256 x 256 and
+    larger did (1 thread against 2 or 8), so a large Gram must never run on
+    a count that another thread set to 1: hence the mode that holds the
+    gate alone. Where scipy links no OpenBLAS of its own, whose count this
+    module cannot set, every loop holds the gate alone."""
+    if one_thread and _openblas_threads() is not None:
+        return _GATE.one_thread()
+    return _GATE.many_threads()
 
 
 def _lapack_eigh(g: torch.Tensor):
     """Ascending eigendecomposition of a batched Gram by LAPACK's `?syevd`
-    (`scipy.linalg.eigh(driver="evd")`), one matrix at a time on the host in
-    the Gram's dtype; the result goes back to the Gram's device.
+    on the host in the Gram's dtype (float32 or float64), in one native call
+    for the whole batch (`native/lapack_batch.py::syevd_batch`); the result
+    goes back to the Gram's device.
+
+    Grams up to `_ONE_THREAD_MAX_N` share the gate on one OpenBLAS thread,
+    split over one worker per LAPACK instance (`lapack_batch.instances()`:
+    scipy's OpenBLAS and private copies of it, up to one per available
+    CPU; at most one worker per matrix); larger ones hold the gate alone
+    and run one after another on scipy's OpenBLAS and its own threads, as
+    do all where scipy links no OpenBLAS of its own. The call releases the
+    GIL, so the eighs of several host threads (a data mesh's rows) overlap,
+    their workers sharing the instances. The bits do not depend on the
+    worker count and equal `_lapack_eigh_plain`'s.
 
     The JAX package's CPU `eigh` is this LAPACK routine, so the eigenvector
     signs are the JAX package's wherever the two Grams' last bits do not
@@ -132,6 +191,18 @@ def _lapack_eigh(g: torch.Tensor):
     cuSOLVER's) signs, and the HOSVD codecs' truncating quantizers turn
     signs into PSNR: up to 2 dB apart on photographs at bpp 0.5.
     """
+    host = g.detach().cpu().numpy()
+    one = host.shape[-1] <= _ONE_THREAD_MAX_N and _openblas_threads() is not None
+    with _host_lapack(one):
+        evals, evecs = lapack_batch.syevd_batch(host, 0 if one else 1)
+    return torch.from_numpy(evals).to(g.device), torch.from_numpy(evecs).to(g.device)
+
+
+def _lapack_eigh_plain(g: torch.Tensor):
+    """`_lapack_eigh`'s plain version: `scipy.linalg.eigh(driver="evd")`, one
+    matrix at a time in a Python loop, under the same gate. scipy's wrapper
+    holds the GIL through each call. Tests and the card's smoke test hold
+    the native batch to it; nothing on the codec's path calls it."""
     host = g.detach().cpu().numpy()
     flat = host.reshape(-1, *host.shape[-2:])
     evals = np.empty(flat.shape[:-1], flat.dtype)

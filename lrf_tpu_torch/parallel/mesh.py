@@ -14,9 +14,10 @@ card can stand in for several), so the cross-shard code runs anywhere.
 
 `Mesh.map_rows` runs per-row work on one host thread per data row, so a
 row whose ops wait on the host (pageable copies, a kernel's end) does not
-hold back the other rows' devices. The exact init's LAPACK eigh is the
-exception: scipy holds the GIL through each call, so the rows take turns
-on their Grams (`ops/svd.py::_host_lapack`).
+hold back the other rows' devices. The exact init's host LAPACK eigh
+runs as one native call per row that releases the GIL, and the rows share
+the host LAPACK gate on one OpenBLAS thread each
+(`ops/svd.py::_host_lapack`), so their eighs overlap too.
 """
 
 from __future__ import annotations

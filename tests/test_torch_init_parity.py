@@ -9,12 +9,14 @@ On the CPU, on the seven `experiments/data/local7` photographs:
   Gram rounded to float32 in every entry of each Y stack, and does not
   depend on how the rows are sharded: 1, 2 and 3 row shards' `gram64`
   summed by `sum_shards`, then rounded, give the same bits;
-- the exact init's eigensolver is `_lapack_eigh` (LAPACK's `?syevd`) for
-  `method="gram"`, bit for bit, and the init never calls
-  `torch.linalg.eigh`; its LAPACK calls run on one OpenBLAS thread, which
-  is restored after, and every host LAPACK loop (the eigh of small and
-  large Grams, the SVD codec's `?gesdd`) holds `_BLAS_LOCK` on the
-  thread count it needs;
+- the exact init's eigensolver is `_lapack_eigh` (LAPACK's `?syevd`, one
+  native call per batch) for `method="gram"`, bit for bit, and the init
+  never calls `torch.linalg.eigh`; its LAPACK call runs on one OpenBLAS
+  thread, which is restored after, and every host LAPACK loop holds the
+  gate (`svd._GATE`) in the mode it needs: the eigh of small Grams shares
+  it on one thread, the eigh of large Grams and the SVD codec's `?gesdd`
+  hold it alone on the count found (`tests/test_torch_host_eigh.py` holds
+  the native batch's bits and the gate's overlap);
 - `gram_path` states which stacks take the exact path, for
   `truncated_svd` and `sharded_svd_init` alike;
 - `left_factor` gives a stack's bits and its row shards' alike, and a
@@ -100,40 +102,45 @@ def test_lapack_runs_on_one_blas_thread(y_stacks, monkeypatch):
     if threads is None:
         pytest.skip("scipy here links no OpenBLAS of its own")
     before, seen = threads[0](), []
-    eigh = svd.scipy.linalg.eigh
+    batch = svd.lapack_batch.syevd_batch
 
-    def counting(*args, **kwargs):
-        seen.append(threads[0]())
-        return eigh(*args, **kwargs)
+    def counting(a, workers):
+        seen.append((threads[0](), workers))
+        return batch(a, workers)
 
-    monkeypatch.setattr(svd.scipy.linalg, "eigh", counting)
+    monkeypatch.setattr(svd.lapack_batch, "syevd_batch", counting)
     svd._lapack_eigh(svd.exact_gram(y_stacks[0]))
-    assert seen == [1] and threads[0]() == before
+    assert seen == [(1, 0)] and threads[0]() == before
 
 
 @pytest.mark.parametrize("what", ["eigh 64", "eigh 192", "svd"])
 def test_host_lapack_loops_hold_the_lock(what, monkeypatch):
+    # the gate's two modes: the eigh of a small Gram batch shares it on one
+    # OpenBLAS thread (one native call for the batch); the eigh of larger
+    # Grams and the SVD codec's ?gesdd hold it alone on the count found
     threads = svd._openblas_threads()
     if threads is None:
         pytest.skip("scipy here links no OpenBLAS of its own")
     before, seen = threads[0](), []
     name = what.split()[0]
-    call = getattr(svd.scipy.linalg, name)
+    owner, attr = (svd.scipy.linalg, "svd") if name == "svd" else (svd.lapack_batch, "syevd_batch")
+    call = getattr(owner, attr)
 
     def recording(*args, **kwargs):
-        seen.append((svd._BLAS_LOCK.locked(), threads[0]()))
+        seen.append((svd._GATE.mode, threads[0]()))
         return call(*args, **kwargs)
 
-    monkeypatch.setattr(svd.scipy.linalg, name, recording)
+    monkeypatch.setattr(owner, attr, recording)
     a = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 192, 192)).astype(np.float32))
     if name == "svd":
         svd._lapack_svd(a)
+        assert seen == [("many_threads", before)] * 2
     else:
         n = int(what.split()[1])
         svd._lapack_eigh(svd.exact_gram(a[..., :n]))
-    one = name == "eigh" and n <= svd._ONE_THREAD_MAX_N
-    assert seen == [(True, 1 if one else before)] * 2
-    assert threads[0]() == before and not svd._BLAS_LOCK.locked()
+        one = n <= svd._ONE_THREAD_MAX_N
+        assert seen == [("one_thread", 1) if one else ("many_threads", before)]
+    assert threads[0]() == before and svd._GATE.mode is None
 
 
 @pytest.mark.parametrize("method, m, n, want", [

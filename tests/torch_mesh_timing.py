@@ -14,7 +14,8 @@ dealt over the visible cards in turn, so several rows may share one
 card), each the best of `--reps` calls after two untimed ones,
 CUDA-synchronized; and, on the mesh, the
 host wall time of the exact init's eigensolver summed over the rows
-(`ops/svd.py::_gram_eig`, wrapped). Prints the card's name and power limit
+(`ops/svd.py::_gram_eig`, wrapped), with each call's window (start, end)
+in ms from the traced encode's start on one host clock. Prints the card's name and power limit
 from `nvidia-smi`, then one JSON line.
 
 Not collected by pytest (the file name does not start with `test_`).
@@ -77,24 +78,27 @@ def main() -> None:
     eig, lock, spent = svd._gram_eig, threading.Lock(), []
 
     def timed(g, method):
-        t0 = time.perf_counter()
+        start = time.perf_counter()
         out = eig(g, method)
         with lock:
-            spent.append((time.perf_counter() - t0) * 1e3)
+            spent.append((start, time.perf_counter()))
         return out
 
     svd._gram_eig = timed
     try:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         lt.sharded_qmf_encode_batch(images, quality=10, device=mesh)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     finally:
         svd._gram_eig = eig
+    windows = sorted([(a - t0) * 1e3, (b - t0) * 1e3] for a, b in spent)
     print(json.dumps({
         "tree": TREE, "cards": count, "images": len(images), "mesh": str(mesh),
         "one_card_ms": one_ms, "one_card_all_ms": one_all, "mesh_ms": mesh_ms, "mesh_all_ms": mesh_all,
-        "mesh_eigh_calls": len(spent), "mesh_eigh_ms_sum": sum(spent), "mesh_eigh_ms_each": spent,
+        "mesh_eigh_calls": len(windows), "mesh_eigh_ms_sum": sum(b - a for a, b in windows),
+        "mesh_eigh_ms_each": [b - a for a, b in windows], "mesh_eigh_windows_ms": windows,
         "mesh_call_with_eigh_timed_ms": traced_ms,
     }), flush=True)
 
