@@ -63,6 +63,7 @@ import torch
 from lrf_tpu_torch.native import lapack_batch
 from lrf_tpu_torch.native.lapack_batch import openblas_threads as _openblas_threads
 from lrf_tpu_torch.ops.jacobi import jacobi_eigh
+from lrf_tpu_torch.utils import profiling
 
 _METHODS = ("gram", "jacobi", "randomized", "svd")
 
@@ -191,9 +192,10 @@ def _lapack_eigh(g: torch.Tensor):
     cuSOLVER's) signs, and the HOSVD codecs' truncating quantizers turn
     signs into PSNR: up to 2 dB apart on photographs at bpp 0.5.
     """
-    host = g.detach().cpu().numpy()
+    with profiling.span("lrf.encode.init.gram_fetch", bytes_in=g.nbytes):
+        host = g.detach().cpu().numpy()
     one = host.shape[-1] <= _ONE_THREAD_MAX_N and _openblas_threads() is not None
-    with _host_lapack(one):
+    with _host_lapack(one), profiling.span("lrf.encode.init.eigh", bytes_in=host.nbytes, mirror=True):
         evals, evecs = lapack_batch.syevd_batch(host, 0 if one else 1)
     return torch.from_numpy(evals).to(g.device), torch.from_numpy(evecs).to(g.device)
 

@@ -27,7 +27,8 @@ on the row's device), and every device of a row
 does the row's work (JAX's `P("data")` replicates it over the patch axis).
 Per-image results equal `lrf_tpu_torch.qmf_decode`'s.
 `sharded_qmf_decode_batches` overlaps the host stage of the next batch with
-the device work of the current one.
+the device work of the current one. Under a profiler both entry points
+record the `lrf.decode.*` spans of `utils/profiling.py`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from lrf_tpu_torch.ops.quantize import torch_dtype, to_dtype
 from lrf_tpu_torch.ops.resample import chroma_upsample
 from lrf_tpu_torch.parallel.encode import _pack_params
 from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
+from lrf_tpu_torch.utils import profiling
 from lrf_tpu_torch.utils.transfer import to_host
 
 __all__ = ["TRANSPORT_COUNTS", "sharded_qmf_decode_batch", "sharded_qmf_decode_batches"]
@@ -91,19 +93,20 @@ def _inflate_streams(streams, single_device: bool = False, transport: str = "fla
         raise ValueError("no streams to decode")
     metadata = None
     per_factor: list[list[bytes]] = [[] for _ in range(6)]
-    for stream in streams:
-        encoded_metadata, encoded_factors = separate_bytes(stream, 2)
-        md = bytes_to_dict(encoded_metadata)
-        if metadata is None:
-            metadata = md
-            if md["color space"] != "YCbCr" or not md["patch"]:
-                raise ValueError(
-                    "batched decode covers the YCbCr+patch format; use qmf_decode for RGB/no-patch streams"
-                )
-        elif md != metadata:
-            raise ValueError("streams must share one codec config")
-        for k, blob in enumerate(separate_bytes(encoded_factors, 6)):
-            per_factor[k].append(blob)
+    with profiling.span("lrf.decode.parse"):
+        for stream in streams:
+            encoded_metadata, encoded_factors = separate_bytes(stream, 2)
+            md = bytes_to_dict(encoded_metadata)
+            if metadata is None:
+                metadata = md
+                if md["color space"] != "YCbCr" or not md["patch"]:
+                    raise ValueError(
+                        "batched decode covers the YCbCr+patch format; use qmf_decode for RGB/no-patch streams"
+                    )
+            elif md != metadata:
+                raise ValueError("streams must share one codec config")
+            for k, blob in enumerate(separate_bytes(encoded_factors, 6)):
+                per_factor[k].append(blob)
     b = len(streams)
     fast = _inflate_pack_native(per_factor, metadata, b, single_device and transport == "dpack")
     if fast is not None:
@@ -257,19 +260,27 @@ def _device_decode(flat: np.ndarray, metadata, shapes, in_dtype, pack, mesh: Mes
         kind = "dpack" if pack[0] == "dpack" else "flat"
         flat = flat.view(np.int32)
     TRANSPORT_COUNTS[kind] += 1
-    if kind == "dpack":  # one device by construction (_inflate_streams' gate)
-        parts = [_reconstruct(torch.from_numpy(flat).to(mesh.first), metadata, shapes, in_dtype, pack)]
-    else:
-        def decode_row(part, devices):
-            copies = [_reconstruct(part.to(d), metadata, shapes, in_dtype, pack) for d in devices]
-            return copies[0]
+    with profiling.span("lrf.decode.device"):
+        with profiling.span("lrf.decode.upload", bytes_in=flat.nbytes):
+            host = torch.from_numpy(flat)
+            # dpack: one device by construction (_inflate_streams' gate)
+            parts = [host.to(mesh.first)] if kind == "dpack" else mesh.split_batch(host)
+        with profiling.span("lrf.decode.reconstruct"):
+            if kind == "dpack":
+                parts = [_reconstruct(parts[0], metadata, shapes, in_dtype, pack)]
+            else:
+                def decode_row(part, devices):
+                    copies = [_reconstruct(part.to(d), metadata, shapes, in_dtype, pack) for d in devices]
+                    return copies[0]
 
-        parts = mesh.map_rows(decode_row, mesh.split_batch(torch.from_numpy(flat)))
-    if len(parts) == 1:
-        return to_host(parts[0]) if out == "host" else parts[0]
-    if out == "host":
-        return np.concatenate([to_host(p) for p in parts])
-    return torch.cat([p.to(mesh.first) for p in parts])
+                parts = mesh.map_rows(decode_row, parts)
+        if out != "host":
+            return parts[0] if len(parts) == 1 else torch.cat([p.to(mesh.first) for p in parts])
+        with profiling.span("lrf.decode.to_host") as s:
+            pixels = to_host(parts[0]) if len(parts) == 1 else np.concatenate([to_host(p) for p in parts])
+            if s is not None:
+                s.bytes_in = pixels.nbytes
+        return pixels
 
 
 def sharded_qmf_decode_batch(streams, device="cuda", out: str = "host", transport: str = "flat"):
@@ -283,7 +294,23 @@ def sharded_qmf_decode_batch(streams, device="cuda", out: str = "host", transpor
     """
     _check_args(out, transport)
     mesh = as_mesh(device)
-    return _device_decode(*_inflate_streams(streams, mesh.size == 1, transport), mesh, out)
+    profiling.follow_profiler()
+    root = profiling.begin("lrf.decode.batch", batch=0)
+    try:
+        with profiling.within(root):
+            return _device_decode(*_inflate_spanned(streams, mesh.size == 1, transport, root), mesh, out)
+    finally:
+        profiling.end(root)
+
+
+def _inflate_spanned(streams, single_device: bool, transport: str, parent=None):
+    """`_inflate_streams` under the `lrf.decode.inflate` span; `parent` is
+    the batch's span (of the thread that submitted it)."""
+    with profiling.span("lrf.decode.inflate", parent=parent, bytes_in=sum(len(x) for x in streams)) as s:
+        staged = _inflate_streams(streams, single_device, transport)
+        if s is not None:
+            s.bytes_out = staged[0].nbytes
+    return staged
 
 
 def sharded_qmf_decode_batches(stream_batches, device="cuda", out: str = "host", transport: str = "flat"):
@@ -298,12 +325,25 @@ def sharded_qmf_decode_batches(stream_batches, device="cuda", out: str = "host",
     """
     _check_args(out, transport)
     mesh = as_mesh(device)
+    profiling.follow_profiler()
+
+    def finish(fut, root):
+        profiling.follow_profiler()
+        with profiling.within(root):
+            with profiling.span("lrf.decode.inflate_wait", mirror=True):
+                staged = fut.result()
+            pixels = _device_decode(*staged, mesh, out)
+        profiling.end(root)
+        return pixels
+
     with ThreadPoolExecutor(max_workers=1) as pool:
         pending = None
-        for streams in stream_batches:
-            fut = pool.submit(_inflate_streams, streams, mesh.size == 1, transport)
+        for seq, streams in enumerate(stream_batches):
+            profiling.follow_profiler()
+            root = profiling.begin("lrf.decode.batch", batch=seq)
+            fut = pool.submit(_inflate_spanned, streams, mesh.size == 1, transport, root)
             if pending is not None:
-                yield _device_decode(*pending.result(), mesh, out)
-            pending = fut
+                yield finish(*pending)
+            pending = (fut, root)
         if pending is not None:
-            yield _device_decode(*pending.result(), mesh, out)
+            yield finish(*pending)

@@ -33,12 +33,15 @@ in one native call (`native/fibercodec.cpp`: entropy decode, per-fiber
 DEFLATE and framing). All modes give the same bytes.
 `sharded_qmf_encode_batches` pipelines many batches: device work and copies
 stay on the calling thread while two workers serialize earlier batches.
+Under a profiler both entry points record the `lrf.encode.*` spans of
+`utils/profiling.py`.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -64,6 +67,7 @@ from lrf_tpu_torch.ops.patch import patchify
 from lrf_tpu_torch.ops.quantize import torch_dtype
 from lrf_tpu_torch.ops.resample import chroma_downsample, scaled_size
 from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
+from lrf_tpu_torch.utils import profiling
 from lrf_tpu_torch.utils.transfer import HostCopy
 
 __all__ = [
@@ -198,26 +202,32 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
 
     def factorize(stacks, stack_ranks, merged):
         """One device: the init, then one BCD run per stack."""
-        if init == "svd" and merged and all(x.shape[-2] >= x.shape[-1] for x in stacks):
-            inits = svd_init_shared(stacks, stack_ranks, bounds=bounds)
-        else:
-            inits = [svd_init(x, r, method=method, bounds=bounds) for x, r in zip(stacks, stack_ranks)]
-        return [run_bcd(x, i[0], i[1], num_iters=num_iters, bounds=bounds) for x, i in zip(stacks, inits)]
+        with profiling.span("lrf.encode.init"):
+            if init == "svd" and merged and all(x.shape[-2] >= x.shape[-1] for x in stacks):
+                inits = svd_init_shared(stacks, stack_ranks, bounds=bounds)
+            else:
+                inits = [svd_init(x, r, method=method, bounds=bounds) for x, r in zip(stacks, stack_ranks)]
+        with profiling.span("lrf.encode.bcd"):
+            return [run_bcd(x, i[0], i[1], num_iters=num_iters, bounds=bounds) for x, i in zip(stacks, inits)]
 
     def factorize_sharded(stacks, stack_ranks, devices):
         """A data row's patch devices: each stack's M rows split over them,
         the init and the plain sweeps summed across the shards."""
         shards = [[p.to(d, non_blocking=True) for p, d in zip(torch.tensor_split(x, len(devices), dim=1), devices)]
                   for x in stacks]
+        with profiling.span("lrf.encode.init"):
+            inits = sharded_svd_init(shards, stack_ranks, bounds, method)
         out = []
-        for xs, (us, v) in zip(shards, sharded_svd_init(shards, stack_ranks, bounds, method)):
-            us, v = sharded_bcd(xs, us, v, num_iters=num_iters, bounds=bounds)
-            out.append((torch.cat([u.to(devices[0], non_blocking=True) for u in us], dim=1), v))
+        with profiling.span("lrf.encode.bcd"):
+            for xs, (us, v) in zip(shards, inits):
+                us, v = sharded_bcd(xs, us, v, num_iters=num_iters, bounds=bounds)
+                out.append((torch.cat([u.to(devices[0], non_blocking=True) for u in us], dim=1), v))
         return out
 
     def encode_row(images: torch.Tensor, devices):
-        channels = chroma_downsample(rgb_to_ycbcr(images), scale_factor)
-        stacks = [patchify(pad_image(c, patch_size), patch_size) for c in channels]
+        with profiling.span("lrf.encode.frontend"):
+            channels = chroma_downsample(rgb_to_ycbcr(images), scale_factor)
+            stacks = [patchify(pad_image(c, patch_size), patch_size) for c in channels]
         b = stacks[0].shape[0]
         merged = stacks[1].shape == stacks[2].shape and ranks[1] == ranks[2]
         if merged:
@@ -234,7 +244,12 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
         return [f.to(dtype) for uv in per_stack for f in uv]
 
     def encode(images: torch.Tensor):
-        rows = mesh.map_rows(encode_row, mesh.split_batch(images))
+        if len(mesh.devices) == 1:
+            parts = mesh.split_batch(images)
+        else:  # each row's part to its row: the batch's upload (`_to_device` leaves it where it is)
+            with profiling.span("lrf.encode.upload", bytes_in=images.nbytes):
+                parts = mesh.split_batch(images)
+        rows = mesh.map_rows(encode_row, parts)
         factors = rows[0] if len(rows) == 1 else [torch.cat([r[k].to(mesh.first) for r in rows]) for k in range(6)]
         if pack == "entropy":
             seg_base, main, exc = _entropy.pack_segments(factors, max_exc_rows=exc_rows)
@@ -355,7 +370,16 @@ def _to_device(images, mesh: Mesh) -> torch.Tensor:
     is (`Mesh.split_batch` moves each row's part to its row)."""
     if not isinstance(images, torch.Tensor):
         images = torch.from_numpy(np.ascontiguousarray(images))
-    return images.to(mesh.first) if len(mesh.devices) == 1 else images
+    if len(mesh.devices) > 1:
+        return images
+    with profiling.span("lrf.encode.upload", bytes_in=images.nbytes):
+        return images.to(mesh.first)
+
+
+def _start_fetch(out) -> HostCopy:
+    """The encoder's output on its way to pinned host memory."""
+    with profiling.span("lrf.encode.fetch_start", bytes_in=sum(t.nbytes for t in out)):
+        return HostCopy(out)
 
 
 def _fetch_encoded(copy: HostCopy, pack_spec):
@@ -363,7 +387,8 @@ def _fetch_encoded(copy: HostCopy, pack_spec):
     arrays (raw), the packed words (flat), or `(seg_base, main, exc)` with
     only the used continuation rows (entropy). Raises EntropyOverflowError
     when the entropy pack ran out of rows."""
-    host = copy.wait()
+    with profiling.span("lrf.encode.fetch_wait", mirror=True):
+        host = copy.wait()
     if pack_spec is None:
         return host
     flat = host[0].view(np.uint32)
@@ -434,6 +459,20 @@ def _serialize_batch(host_out, pack_spec, metadata, b: int) -> list[bytes]:
     ]
 
 
+def _serialize_spanned(host_out, pack_spec, metadata, b: int, parent=None, submitted_ns=None) -> list[bytes]:
+    """`_serialize_batch` under the `lrf.encode.serialize` span, after the
+    `lrf.encode.serializer_queue` span from `submitted_ns` when it waited
+    in a worker pool's queue; `parent` is the submitting batch's span."""
+    if submitted_ns is not None:
+        profiling.record("lrf.encode.serializer_queue", submitted_ns, parent=parent)
+    nbytes = sum(a.nbytes for a in host_out) if isinstance(host_out, (list, tuple)) else host_out.nbytes
+    with profiling.span("lrf.encode.serialize", parent=parent, bytes_in=nbytes) as s:
+        streams = _serialize_batch(host_out, pack_spec, metadata, b)
+        if s is not None:
+            s.bytes_out = sum(len(x) for x in streams)
+    return streams
+
+
 def _serialize_plain(host_factors, metadata, b: int, level: int = 9) -> list[bytes]:
     """Plain version of `_serialize_batch` on raw `(B, M, R)` factors: one
     CPython `zlib.compress` per fiber and Python framing. Its bytes equal
@@ -463,15 +502,22 @@ def sharded_qmf_encode_batch(
     package's order, `(images, mesh, quality, rank, **config)`.
     """
     mesh = as_mesh(device)
-    images = _to_device(images, mesh)
-    b = int(images.shape[0])
-    size = (int(images.shape[-2]), int(images.shape[-1]))
-    fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
+    profiling.follow_profiler()
+    root = profiling.begin("lrf.encode.batch", batch=0)
     try:
-        host_out = _fetch_encoded(HostCopy(fn(images)), pack_spec)
-    except EntropyOverflowError:
-        return sharded_qmf_encode_batch(images, device=mesh, quality=quality, rank=rank, **{**config, "pack": "flat"})
-    return _serialize_batch(host_out, pack_spec, metadata, b)
+        with profiling.within(root):
+            images = _to_device(images, mesh)
+            b = int(images.shape[0])
+            size = (int(images.shape[-2]), int(images.shape[-1]))
+            fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
+            try:
+                host_out = _fetch_encoded(_start_fetch(fn(images)), pack_spec)
+            except EntropyOverflowError:
+                return sharded_qmf_encode_batch(images, device=mesh, quality=quality, rank=rank,
+                                                **{**config, "pack": "flat"})
+            return _serialize_spanned(host_out, pack_spec, metadata, b)
+    finally:
+        profiling.end(root)
 
 
 def sharded_qmf_encode_batches(
@@ -500,33 +546,48 @@ def sharded_qmf_encode_batches(
     if depth < 1:
         raise ValueError("depth must be >= 1")
     mesh = as_mesh(device)
+    profiling.follow_profiler()
     with ThreadPoolExecutor(max_workers=2) as pool:
-        in_flight = deque()  # (copy, pack_spec, metadata, b, images)
-        pending = deque()  # futures of list[bytes], in batch order
+        in_flight = deque()  # (copy, pack_spec, metadata, b, images, root span)
+        pending = deque()  # (future of list[bytes], root span), in batch order
 
         def drain_one():
-            copy, pack_spec, metadata, b, images = in_flight.popleft()
-            try:
-                host_out = _fetch_encoded(copy, pack_spec)
-            except EntropyOverflowError:
+            copy, pack_spec, metadata, b, images, root = in_flight.popleft()
+            with profiling.within(root):
+                try:
+                    host_out = _fetch_encoded(copy, pack_spec)
+                except EntropyOverflowError:
+                    size = (int(images.shape[-2]), int(images.shape[-1]))
+                    fn, metadata, pack_spec = build_sharded_encoder(
+                        mesh, size, quality=quality, rank=rank, batch=b, **{**config, "pack": "flat"}
+                    )
+                    host_out = _fetch_encoded(_start_fetch(fn(images)), pack_spec)
+            fut = pool.submit(_serialize_spanned, host_out, pack_spec, metadata, b, root, time.perf_counter_ns())
+            profiling.end(root)
+            pending.append((fut, root))
+
+        def result():
+            profiling.follow_profiler()
+            fut, root = pending.popleft()
+            with profiling.span("lrf.encode.result_wait", parent=root, mirror=True):
+                return fut.result()
+
+        for seq, images in enumerate(batches):
+            profiling.follow_profiler()
+            root = profiling.begin("lrf.encode.batch", batch=seq)
+            with profiling.within(root):
+                images = _to_device(images, mesh)
+                b = int(images.shape[0])
                 size = (int(images.shape[-2]), int(images.shape[-1]))
                 fn, metadata, pack_spec = build_sharded_encoder(
-                    mesh, size, quality=quality, rank=rank, batch=b, **{**config, "pack": "flat"}
+                    mesh, size, quality=quality, rank=rank, batch=b, **config
                 )
-                host_out = _fetch_encoded(HostCopy(fn(images)), pack_spec)
-            pending.append(pool.submit(_serialize_batch, host_out, pack_spec, metadata, b))
-
-        for images in batches:
-            images = _to_device(images, mesh)
-            b = int(images.shape[0])
-            size = (int(images.shape[-2]), int(images.shape[-1]))
-            fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
-            in_flight.append((HostCopy(fn(images)), pack_spec, metadata, b, images))
+                in_flight.append((_start_fetch(fn(images)), pack_spec, metadata, b, images, root))
             if len(in_flight) > depth:
                 drain_one()
             while len(pending) > 2:
-                yield pending.popleft().result()
+                yield result()
         while in_flight:
             drain_one()
         while pending:
-            yield pending.popleft().result()
+            yield result()

@@ -28,6 +28,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from lrf_tpu_torch.utils import profiling
 from lrf_tpu_torch.utils.transfer import resolve_device
 
 __all__ = ["Mesh", "as_mesh", "make_mesh"]
@@ -75,19 +76,22 @@ class Mesh:
 
         With several rows, each row runs on its own host thread with its
         first device as the current CUDA device, so its ops go to that
-        device's current stream; the calling thread joins them all and
-        re-raises the first row's error. A one-row mesh runs `fn` on the
-        calling thread.
+        device's current stream, under an `lrf.mesh.row` span whose parent
+        is the calling thread's current span; the calling thread joins them
+        all and re-raises the first row's error. A one-row mesh runs `fn`
+        on the calling thread.
         """
         if len(self.devices) == 1:
             return [fn(parts[0], self.devices[0])]
         results: list = [None] * len(self.devices)
         errors: list = [None] * len(self.devices)
+        parent = profiling.current()
 
         def run(i: int) -> None:
             first = self.devices[i][0]
             try:
-                with torch.cuda.device(first) if first.type == "cuda" else contextlib.nullcontext():
+                with (torch.cuda.device(first) if first.type == "cuda" else contextlib.nullcontext(),
+                      profiling.span("lrf.mesh.row", parent=parent, row=i)):
                     results[i] = fn(parts[i], self.devices[i])
             except BaseException as e:  # handed to the calling thread below
                 errors[i] = e
