@@ -36,7 +36,9 @@ Phases, each of which raises (exit code != 0) when a check fails:
 4. the main path at full width: `sharded_qmf_encode_batch` of 64 RGB
    512x768 images at quality 10, then `sharded_qmf_decode_batch`; the
    R <= 16 cluster kernel must be launched exactly twice (Y, merged Cb+Cr)
-   and the others not at all, per-image `qmf_decode` must give the batched
+   and the others not at all, the DEFLATE kernel three times (one per M:
+   the card's host has no libdeflate, so "best" is zlib-9 and the encoder
+   must take the card path), per-image `qmf_decode` must give the batched
    decode's pixels, and per-image PSNR must be within 0.2 dB of an encode
    whose BCD is the plain version; its encode rate is the best of three
    calls timed after two untimed ones; the init's parts beside it: the
@@ -54,9 +56,12 @@ Phases, each of which raises (exit code != 0) when a check fails:
    the entropy pack), whose streams must be byte-identical, with each
    mode's encode, host and device times; the native serializer against the
    plain pure-Python one on the same fetched factors (equal bytes under
-   the "zlib" coder); the synchronizing CUDA calls of one encode; then
-   `sharded_qmf_encode_batches` over 8 batches, which must give the
-   one-shot streams in order with 16 cluster-kernel launches, and
+   the "zlib" coder); `deflate_fibers` on the same factors against the
+   host's `assemble_streams` at zlib level 9 (equal streams; the kernel's
+   device ms beside the host pool's wall ms); the synchronizing CUDA calls
+   of one encode; then `sharded_qmf_encode_batches` over 8 batches, which
+   must give the one-shot streams in order with 16 cluster-kernel and 24
+   DEFLATE launches, and
    `sharded_qmf_decode_batches` over those streams, which must give the
    one-shot decode's pixels through the packed upload;
 7. the fast init: the bench batch with `init="fast"` (two cluster-kernel
@@ -174,7 +179,8 @@ It prints one JSON line of per-kernel numbers (for the R <= 16 cluster
 kernel and `bcd.cu` summed over the two main-path shapes; for the wide
 cluster kernel at the q40 Y stack, its launches counted over phase 10's q40
 encodes; for `bcd_grid` at the q75 Y stack, its launches counted over phase
-10's q75 encodes), then as its last line
+10's q75 encodes; for the DEFLATE kernel at the main path's factors, its
+launches counted over phase 4's first encode), then as its last line
 `{"ok": true, "device": {...}}`. It needs one CUDA device; without one it
 exits with code 1 and prints no result. It imports neither JAX nor
 `lrf_tpu`. `--phases` runs 1, 2, 4 and the phases named (for example
@@ -187,6 +193,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import glob
 import json
 import os
@@ -280,6 +287,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def joined(torch, out):
+    """`out`, after making the current stream wait for the stream it was
+    made on (the card DEFLATE's side stream), so that events recorded on
+    the current stream time the whole device part."""
+    stream = getattr(out, "stream", None)
+    if stream is not None:
+        torch.cuda.current_stream().wait_stream(stream)
+    return out
+
+
+def deflate_bound_ms(factors, lens, rank_ints: int) -> float:
+    """Least time of one `deflate_fibers` call by its bytes: the factors
+    read, the streams and their lengths written, the global rank scratch
+    written and read, at the card's peak bandwidth. No flop count applies:
+    the work is compares and a serial parse per fiber."""
+    nbytes = sum(f.nbytes for f in factors) + int(lens.sum()) + 4 * lens.size + 8 * rank_ints
+    return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -608,12 +634,19 @@ def per_image_psnr(ref: np.ndarray, dec: np.ndarray) -> np.ndarray:
 
 def phase_main_path(torch, lt, bk, seed: int, label: str):
     """Phase 4: batched encode and decode at 64 x 3 x 512 x 768, quality 10."""
+    from lrf_tpu_torch.ops import deflate
+
     images = load_images(seed)
     b, _, h, w = images.shape
     mpix = b * h * w / 1e6
 
+    spec = lt.build_sharded_encoder("cuda", (h, w), quality=10, batch=b)[2]
+    check(spec is not None and spec["mode"] == "zlib9",
+          f"the main path's encoder does not DEFLATE on the card (pack spec {spec and spec['mode']}; coder "
+          f"{lt.get_fiber_coder()})")
     for name in bk.KERNEL.counts:
         bk.KERNEL.counts[name] = 0
+    deflate.KERNEL.counts["deflate"] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     streams = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda")
@@ -622,7 +655,11 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
     launches = dict(bk.KERNEL.counts)
     check(launches == only(bk, bcd_cluster=2),
           f"main path launched the kernels {launches} times, expected bcd_cluster twice (Y, Cb+Cr)")
-    print(f"main path: kernel launches {launches} in one encode of {b} images (first encode {first_s:.3f} s)")
+    deflate_launches = deflate.KERNEL.counts["deflate"]
+    check(deflate_launches == 3, f"main path launched the DEFLATE kernel {deflate_launches} times, expected 3 "
+          f"(one per M: 6144, 1536, 64)")
+    print(f"main path: kernel launches {launches}, DEFLATE {deflate_launches}, in one encode of {b} images "
+          f"(first encode {first_s:.3f} s)")
 
     # Two untimed encodes first: the timed ones read up to 27 ms (11%) slower
     # right after the first encode than a few seconds later (PERF.md section 7).
@@ -721,7 +758,7 @@ def phase_main_path(torch, lt, bk, seed: int, label: str):
           f"ms wall; torch.linalg.eigh (cuSOLVER) of the same {len(grams)} Grams {cusolver_s * 1e3:.3f} ms wall; "
           f"whole encode {enc_best * 1e3:.2f} ms; the eigh's host CPU {eigh_cpu_ms:.1f} ms, and {after_cpu_ms:.1f} "
           f"ms in the 200 ms after it", flush=True)
-    return dict(launches=launches, enc_ms=enc_best * 1e3, enc_all_ms=[t * 1e3 for t in enc_s], bench=bench,
+    return dict(launches=launches, deflate_launches=deflate_launches, enc_ms=enc_best * 1e3, enc_all_ms=[t * 1e3 for t in enc_s], bench=bench,
                 device_ms=device_ms, streams=streams, dec=dec, gram_ms=gram_ms, eigh_ms=eigh_s * 1e3,
                 cusolver_ms=cusolver_s * 1e3)
 
@@ -796,10 +833,9 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     """Phase 6: the transports, the native serializer against the plain one,
     and the pipelined encode and decode over 8 batches."""
     from lrf_tpu_torch.native import fibercodec as native
-    from lrf_tpu_torch.ops import entropy
+    from lrf_tpu_torch.ops import deflate, entropy
     from lrf_tpu_torch.parallel import decode as pdec
     from lrf_tpu_torch.parallel import encode as penc
-    from lrf_tpu_torch.utils.transfer import HostCopy
 
     images = load_images(seed)
     b, _, h, w = images.shape
@@ -812,11 +848,20 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     runs = {}
     for mode in (None, "flat", "entropy"):
         fn, metadata, spec = lt.build_sharded_encoder("cuda", (h, w), quality=10, batch=b, pack=mode)
-        device_ms = cuda_ms(lambda: fn(x_dev), 3)
-        enc_s, streams = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", pack=mode))
+        if mode is None:
+            check(spec is not None and spec["mode"] == "zlib9", f"raw factors do not DEFLATE on the card: {spec}")
+        device_ms = cuda_ms(lambda: joined(torch, fn(x_dev)), 3)
+        deflate.KERNEL.counts["deflate"] = 0
+        streams = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", pack=mode)
+        want = 3 if mode is None else 0
+        check(deflate.KERNEL.counts["deflate"] == want,
+              f"pack={mode}: one encode launched the DEFLATE kernel {deflate.KERNEL.counts['deflate']} times, "
+              f"expected {want}")
+        enc_s, again = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", pack=mode))
+        check(again == streams, f"pack={mode}: encode is not deterministic")
         out = fn(x_dev)
         d2h = sum(t.numel() * t.element_size() for t in out)
-        fetch_s, host_out = best_s(lambda: penc._fetch_encoded(HostCopy(out), spec), 1)
+        fetch_s, host_out = best_s(lambda: penc._fetch_encoded(penc._start_fetch(out), spec), 1)
         ser_s, again = best_s(lambda: penc._serialize_batch(host_out, spec, metadata, b))
         check(again == streams, f"pack={mode}: serializing the fetched buffers gives other streams")
         runs[mode] = dict(streams=streams, host_out=host_out, spec=spec, metadata=metadata)
@@ -829,12 +874,13 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
                      f"{32 * used_words / n_values:.4f} bits/value used ({32 * d2h / 4 / n_values:.4f} fetched; "
                      f"table's own {entropy.expected_bits_per_value():.4f}); ENTROPY_STATS {penc.ENTROPY_STATS}")
         print(f"host tail [{label}] pack={mode}: encode {enc_s * 1e3:.2f} ms ({mpix / enc_s:.3f} Mpix/s); "
-              f"device part {device_ms:.3f} ms (CUDA events); fetch {fetch_s * 1e3:.3f} ms of {d2h} B; "
+              f"device part {device_ms:.3f} ms (CUDA events{', the side stream joined' if mode is None else ''}); fetch {fetch_s * 1e3:.3f} ms of {d2h} B; "
               f"host part (native serializer, best of 3) {ser_s * 1e3:.3f} ms{extra}", flush=True)
     raw = runs[None]["streams"]
     for mode in ("flat", "entropy"):
         check(runs[mode]["streams"] == raw, f"pack={mode} streams differ from the raw-factor streams")
-    factors = runs[None]["host_out"]
+    flat = runs["flat"]["spec"]  # raw factors (pack None may DEFLATE on the card)
+    factors = penc._unpack_factors(runs["flat"]["host_out"], flat["shapes"], flat["dtype"], flat["lo"], flat["bits"])
     decoded = penc._decode_entropy(runs["entropy"]["host_out"], runs["entropy"]["spec"])
     check(all(np.array_equal(a, c) for a, c in zip(factors, decoded)), "entropy transport changed a factor value")
     print(f"host tail [{label}]: raw, flat and entropy transports give byte-identical streams ({b} of {b})")
@@ -844,6 +890,29 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     entropy_ms = cuda_ms(lambda: entropy.pack_segments(dev_factors, max_exc_rows=budget), 10)
     print(f"host tail [{label}]: transport packs alone on the main path's factors (CUDA events, mean of 10): "
           f"flat {flat_ms:.3f} ms, entropy {entropy_ms:.3f} ms")
+
+    # The DEFLATE kernel on the same factors against the host's zlib-9 pool
+    ms, rs = [f.shape[1] for f in factors], [f.shape[2] for f in factors]
+    inner = penc._inner_metadata(rs)
+    slots, lens = deflate.deflate_fibers(dev_factors)
+    card = native.frame_streams(slots.cpu().numpy(), lens.cpu().numpy(), b, rs, deflate.slot_caps(ms), b"{}", inner)
+    pool_s, host = best_s(lambda: native.assemble_streams(factors, b, ms, rs, b"{}", inner, 9, "zlib"))
+    check(card == host, "deflate_fibers' streams differ from the host's zlib level 9")
+    check(card == native.frame_streams(*runs[None]["host_out"], b, rs, deflate.slot_caps(ms), b"{}", inner),
+          "the encoder's card streams differ from deflate_fibers' on the same factors")
+    deflate_ms = cuda_ms(lambda: deflate.deflate_fibers(dev_factors), 10)
+    lib, global_rank, rank_ints = deflate.KERNEL.lib(), ctypes.c_int(0), 0
+    for f in factors:
+        check(lib.lrf_deflate_global_rank(f.shape[1], ctypes.byref(global_rank)) == 0, "shared memory query")
+        rank_ints += f.size if global_rank.value else 0
+    lens_np = lens.cpu().numpy()
+    bound_ms = deflate_bound_ms(factors, lens_np, rank_ints)
+    print(f"host tail [{label}]: deflate_fibers on the main path's factors ({sum(f.size for f in factors)} B in, "
+          f"{int(lens_np.sum())} B of streams): {deflate_ms:.3f} ms (CUDA events, mean of 10), bound by bytes "
+          f"{bound_ms:.6f} ms; host zlib-9 pool (assemble_streams, {os.cpu_count()} cores, best of 3) "
+          f"{pool_s * 1e3:.3f} ms; streams byte-identical", flush=True)
+    deflate_run = dict(ms=deflate_ms, plain_ms=pool_s * 1e3, bound_ms=bound_ms,
+                       shapes=[list(f.shape) for f in factors])
 
     metadata = runs[None]["metadata"]
     lt.set_fiber_coder("zlib")
@@ -877,9 +946,12 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     half_s, _ = best_s(lambda: list(lt.sharded_qmf_encode_batches(batches[: n // 2], quality=10, device="cuda")), 1)
     for name in bk.KERNEL.counts:
         bk.KERNEL.counts[name] = 0
+    deflate.KERNEL.counts["deflate"] = 0
     pipe_s, got = best_s(lambda: list(lt.sharded_qmf_encode_batches(batches, quality=10, device="cuda")), 1)
     launches = dict(bk.KERNEL.counts)
     check(launches == only(bk, bcd_cluster=2 * n), f"pipelined encode launched {launches}")
+    check(deflate.KERNEL.counts["deflate"] == 3 * n,
+          f"pipelined encode launched the DEFLATE kernel {deflate.KERNEL.counts['deflate']} times, expected {3 * n}")
     check(got == one_shot, "pipelined encode differs from the one-shot encodes")
     # steady state: the second half's batches, with the pipeline's fill and drain cancelled out
     print(f"host tail [{label}]: pipelined encode of {n} batches {n * mpix / pipe_s:.3f} Mpix/s "
@@ -900,7 +972,7 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
           f"{(n - n // 2) * mpix / (pipe_s - half_s):.3f} Mpix/s; one-shot decodes {n * mpix / one_s:.3f} Mpix/s "
           f"({one_s * 1e3:.1f} ms); host stage (parse, native inflate and {pack[1]}-bit pack) "
           f"{inflate_s * 1e3:.3f} ms per batch; pixels equal")
-    return one_shot
+    return one_shot, deflate_run
 
 
 def device_kernels(torch, fn) -> list[str]:
@@ -2901,7 +2973,7 @@ def main() -> int:
         phase_variants(torch, lt, bk, args.seed)
         lap(5)
     if 6 in phases:
-        batches = phase_host_tail(torch, lt, bk, args.seed, label)
+        batches, deflate_run = phase_host_tail(torch, lt, bk, args.seed, label)
         lap(6)
     if 7 in phases:
         phase_fast_init(torch, lt, bk, args.seed, label, main_run["streams"], main_run["dec"])
@@ -2976,6 +3048,23 @@ def main() -> int:
             "path": f"phase 10: qmf_encode of 4 bench images at q{q}",
             "card": label,
         })
+    entries.append({
+        "name": "deflate",
+        "route": "cuda",
+        "source": "lrf_tpu_torch/csrc/deflate.cu",
+        "template": "lrf_tpu_torch/csrc/deflate_core.h",
+        "replaces": "none: the JAX package's per-fiber zlib-9 runs on the host (lrf_tpu/native/fibercodec.cpp)",
+        "launches": main_run["deflate_launches"],
+        "max_abs_err": 0,  # byte-identical streams, checked in phase 6
+        "ms": deflate_run["ms"],
+        "plain_ms": deflate_run["plain_ms"],
+        "bound_ms": deflate_run["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": deflate_run["shapes"],
+        "path": "phase 4: sharded_qmf_encode_batch, 64 x 512x768 at q10 (plain_ms: the host's zlib-9 pool)",
+        "card": label,
+    })
     for e in entries:
         check(e["name"] == "bcd" or e["launches"] > 0, f"{e['name']} was not launched on its path")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

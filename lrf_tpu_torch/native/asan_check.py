@@ -28,6 +28,7 @@ import os
 import subprocess
 import sys
 import warnings
+import zlib
 
 import numpy as np
 
@@ -159,6 +160,16 @@ def check(lib: m.NativeLib) -> None:
         for factors in ([_smooth(rng, s) for s in fshapes], [rng.integers(-16, 16, s).astype(np.int8) for s in fshapes]):
             zlib_streams = m.assemble_streams(factors, fb, fms, frs, md, _inner(frs), 9, "zlib", lib=lib)
             assert len(zlib_streams) == fb
+            # the same fibers coded elsewhere, framed from per-factor slots
+            caps = [m.fiber_cap(mm) for mm in fms]
+            blobs = [zlib.compress(np.ascontiguousarray(f[i, :, r]).tobytes(), 9)
+                     for f in factors for i in range(fb) for r in range(f.shape[2])]
+            slot_caps = [c for f, c in zip(factors, caps) for _ in range(fb * f.shape[2])]
+            slots = np.frombuffer(b"".join(x + bytes(c - len(x)) for x, c in zip(blobs, slot_caps)), np.uint8)
+            lens = np.array([len(x) for x in blobs], np.int32)
+            assert m.frame_streams(slots, lens, fb, frs, caps, md, _inner(frs), lib=lib) == zlib_streams
+            lens[-1] = slot_caps[-1] + 1
+            _raises(RuntimeError, lambda: m.frame_streams(slots, lens, fb, frs, caps, md, _inner(frs), lib=lib))
             for backend, lvl in [("deflate", 1), ("best", 0)]:
                 streams = m.assemble_streams(factors, fb, fms, frs, md, _inner(frs), lvl, backend, lib=lib)
                 assert len(streams) == fb and (deflate or streams == zlib_streams)
@@ -176,7 +187,8 @@ def check(lib: m.NativeLib) -> None:
     _raises(RuntimeError, lambda: m.dpack_assemble_streams(
         main, exc, seg_base, b, ms, rs, bad_lens, E.CODES, E.CHUNK, E.MAIN_WORDS, E.ROW_WORDS, md, _inner(rs), 1,
         "deflate", lib=lib))
-    print("assemble_streams and dpack_assemble_streams ok (incl. truncated exc and a bad Huffman table)", flush=True)
+    print("assemble_streams, frame_streams and dpack_assemble_streams ok (incl. truncated exc and a bad Huffman "
+          "table)", flush=True)
 
 
 def _preloaded() -> bool:

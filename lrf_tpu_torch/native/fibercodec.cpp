@@ -427,11 +427,13 @@ int compress_segment_fibers(const int8_t* block, int64_t m, int64_t r,
 
 // Frame the per-image streams from compressed fiber blobs. Blob slot
 // layout: factor k's fibers for image bi live at
-// slots + (fiber_base[k] + bi * rs[k]) * cap, lengths at the same index in
-// blob_lens. Returns 0, or 1 if out_cap is too small.
+// slots + slot_base[k] + bi * rs[k] * caps[k], one slot of caps[k] bytes
+// each, their lengths at fiber_base[k] + bi * rs[k] in blob_lens.
+// Returns 0, or 1 if out_cap is too small.
 int assemble_frames(int64_t n_factors, int64_t b, const int64_t* rs,
                     const uint8_t* slots, const int64_t* blob_lens,
-                    const int64_t* fiber_base, int64_t cap,
+                    const int64_t* fiber_base, const int64_t* slot_base,
+                    const int64_t* caps,
                     const uint8_t* metadata, int64_t metadata_len,
                     const uint8_t* inner_md_concat,
                     const int64_t* inner_md_lens, uint8_t* out,
@@ -478,7 +480,8 @@ int assemble_frames(int64_t n_factors, int64_t b, const int64_t* rs,
     for (int64_t k = 0; k < n_factors; ++k) {
       const int64_t r = rs[k];
       const int64_t* lens_k = blob_lens + fiber_base[k] + bi * r;
-      const uint8_t* slots_k = slots + (fiber_base[k] + bi * r) * cap;
+      const int64_t cap = caps[k];
+      const uint8_t* slots_k = slots + slot_base[k] + bi * r * cap;
       // f_k = combine([inner_md_k, fibers_combined])
       write_be32(dst, static_cast<uint64_t>(inner_md_lens[k]));
       std::memcpy(dst, inner_md_concat + md_off[static_cast<size_t>(k)],
@@ -499,6 +502,24 @@ int assemble_frames(int64_t n_factors, int64_t b, const int64_t* rs,
     }
   });
   return 0;
+}
+
+// assemble_frames over slots of one capacity, `cap`, in fiber order.
+int assemble_frames_uniform(int64_t n_factors, int64_t b, const int64_t* rs,
+                            const uint8_t* slots, const int64_t* blob_lens,
+                            const int64_t* fiber_base, int64_t cap,
+                            const uint8_t* metadata, int64_t metadata_len,
+                            const uint8_t* inner_md_concat,
+                            const int64_t* inner_md_lens, uint8_t* out,
+                            int64_t out_cap, int64_t* stream_lens) {
+  std::vector<int64_t> slot_base(static_cast<size_t>(n_factors));
+  std::vector<int64_t> caps(static_cast<size_t>(n_factors), cap);
+  for (int64_t k = 0; k < n_factors; ++k)
+    slot_base[static_cast<size_t>(k)] = fiber_base[k] * cap;
+  return assemble_frames(n_factors, b, rs, slots, blob_lens, fiber_base,
+                         slot_base.data(), caps.data(), metadata,
+                         metadata_len, inner_md_concat, inner_md_lens, out,
+                         out_cap, stream_lens);
 }
 
 }  // namespace
@@ -643,10 +664,47 @@ int lrf_assemble_streams(const int8_t* const* factor_bufs, int64_t n_factors,
   });
   for (int rc : rcs)
     if (rc != 0) return rc == Z_BUF_ERROR ? 1 : rc;
-  return assemble_frames(n_factors, b, rs, slots.data(), blob_lens.data(),
-                         fiber_base.data(), cap, metadata, metadata_len,
+  return assemble_frames_uniform(n_factors, b, rs, slots.data(),
+                         blob_lens.data(), fiber_base.data(), cap, metadata,
+                         metadata_len,
                          inner_md_concat, inner_md_lens, out, out_cap,
                          stream_lens);
+}
+
+// Frame finished per-image container streams from fiber blobs coded
+// elsewhere (the card's DEFLATE kernel, lrf_tpu_torch/ops/deflate.py):
+// factor k's slots follow factor k-1's, B * rs[k] slots of caps[k] bytes in
+// (image, fiber) order, and blob_lens holds one length per slot in the
+// same order. Same framing as lrf_assemble_streams. Returns 0 ok, 1 out_cap
+// too small, 2 a length outside its slot.
+int lrf_frame_streams(const uint8_t* slots, const int32_t* blob_lens,
+                      int64_t n_factors, int64_t b, const int64_t* rs,
+                      const int64_t* caps, const uint8_t* metadata,
+                      int64_t metadata_len, const uint8_t* inner_md_concat,
+                      const int64_t* inner_md_lens, uint8_t* out,
+                      int64_t out_cap, int64_t* stream_lens) {
+  std::vector<int64_t> fiber_base(static_cast<size_t>(n_factors));
+  std::vector<int64_t> slot_base(static_cast<size_t>(n_factors));
+  int64_t fibers = 0, bytes = 0;
+  for (int64_t k = 0; k < n_factors; ++k) {
+    fiber_base[static_cast<size_t>(k)] = fibers;
+    slot_base[static_cast<size_t>(k)] = bytes;
+    fibers += b * rs[k];
+    bytes += b * rs[k] * caps[k];
+  }
+  std::vector<int64_t> lens(static_cast<size_t>(fibers));
+  for (int64_t k = 0; k < n_factors; ++k) {
+    for (int64_t i = 0; i < b * rs[k]; ++i) {
+      const int64_t at = fiber_base[static_cast<size_t>(k)] + i;
+      const int32_t len = blob_lens[at];
+      if (len <= 0 || len > caps[k]) return 2;
+      lens[static_cast<size_t>(at)] = len;
+    }
+  }
+  return assemble_frames(n_factors, b, rs, slots, lens.data(),
+                         fiber_base.data(), slot_base.data(), caps, metadata,
+                         metadata_len, inner_md_concat, inner_md_lens, out,
+                         out_cap, stream_lens);
 }
 
 // The fully fused serializer: device entropy-transport buffers (main /
@@ -714,8 +772,9 @@ int lrf_dpack_assemble_streams(
   });
   for (int rc : rcs)
     if (rc != 0) return rc == Z_BUF_ERROR ? 1 : rc;
-  return assemble_frames(n_factors, b, rs, slots.data(), blob_lens.data(),
-                         fiber_base.data(), cap, metadata, metadata_len,
+  return assemble_frames_uniform(n_factors, b, rs, slots.data(),
+                         blob_lens.data(), fiber_base.data(), cap, metadata,
+                         metadata_len,
                          inner_md_concat, inner_md_lens, out, out_cap,
                          stream_lens);
 }

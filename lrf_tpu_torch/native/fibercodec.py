@@ -61,6 +61,9 @@ _SIGNATURES = {
         [ctypes.POINTER(_P), _I64, _I64, _PI64, _PI64, _I64, ctypes.c_char_p, _I64, ctypes.c_char_p, _PI64,
          _I, _I, _PU8, _I64, _PI64],
     ),
+    "lrf_frame_streams": (
+        _I, [_P, _PI32, _I64, _I64, _PI64, _PI64, ctypes.c_char_p, _I64, ctypes.c_char_p, _PI64, _PU8, _I64, _PI64],
+    ),
     "lrf_dpack_assemble_streams": (
         _I,
         [_P, _P, _I64, _PI64, _I64, _I64, _PI64, _PI64, _I64, _PI32, _PU32, _I64, _I64, _I64, _I64, _I64,
@@ -96,12 +99,14 @@ class GxxLib:
     ctypes with `signatures` (name -> (restype, argtypes)).
 
     `defines` are extra compiler flags. Subclasses name the source, the
-    stem, the signatures and the libraries to link (`link_libs`).
+    stem, the signatures and the libraries to link (`link_libs`), and the
+    `headers` the source includes (hashed with it).
     """
 
     source: Path
     stem: str
     signatures: dict
+    headers: tuple = ()
 
     def __init__(self, defines: tuple[str, ...] = ()):
         self.defines = tuple(defines)
@@ -122,6 +127,8 @@ class GxxLib:
         if self._path is None:
             h = hashlib.sha256(" ".join(self.command("OUT")).encode() + b"\0")
             h.update(self.source.read_bytes())
+            for header in self.headers:
+                h.update(header.read_bytes())
             self._path = BUILD_DIR / f"{self.stem}_{h.hexdigest()[:16]}.so"
         return self._path
 
@@ -407,6 +414,35 @@ def assemble_streams(
         _ptr(out, ctypes.c_uint8), out_cap, _ptr(stream_lens, ctypes.c_int64),
     )
     _check(rc, "assemble_streams")
+    return _slice_streams(out, stream_lens)
+
+
+def frame_streams(
+    slots: np.ndarray, blob_lens: np.ndarray, b: int, rs: Sequence[int], caps: Sequence[int], metadata: bytes,
+    inner_mds: Sequence[bytes], lib: Optional[NativeLib] = None,
+) -> list[bytes]:
+    """Finished per-image container streams from fiber blobs already coded
+    (the card's DEFLATE, `ops/deflate.py`): `slots` holds factor k's
+    `B * rs[k]` slots of `caps[k]` bytes after factor k-1's, in (image,
+    fiber) order, and `blob_lens` (int32) one length per slot. Only the
+    framing runs here; bytes equal `assemble_streams`'s for the same blobs."""
+    slots = np.ascontiguousarray(slots, dtype=np.uint8).reshape(-1)
+    lens = np.ascontiguousarray(blob_lens, dtype=np.int32).reshape(-1)
+    rs_a, caps_a = _i64(rs), _i64(caps)
+    if slots.size < int((b * rs_a * caps_a).sum()) or lens.size != b * int(rs_a.sum()):
+        raise ValueError("frame_streams: the slots or lengths do not fit the factors' shapes")
+    md_lens = _i64([len(m) for m in inner_mds])
+    out_cap = _stream_capacity(b, caps, rs, len(metadata), md_lens, 0) + b * int((rs_a * caps_a).sum())
+    out = np.empty(out_cap, dtype=np.uint8)
+    stream_lens = np.empty(b, dtype=np.int64)
+    rc = (lib or LIB).lib().lrf_frame_streams(
+        slots.ctypes.data_as(ctypes.c_void_p), _ptr(lens, ctypes.c_int32), len(rs_a), b,
+        _ptr(rs_a, ctypes.c_int64), _ptr(caps_a, ctypes.c_int64), metadata, len(metadata), b"".join(inner_mds),
+        _ptr(md_lens, ctypes.c_int64), _ptr(out, ctypes.c_uint8), out_cap, _ptr(stream_lens, ctypes.c_int64),
+    )
+    if rc == 2:
+        raise RuntimeError("frame_streams: a fiber's blob length lies outside its slot (the coder ran out of room)")
+    _check(rc, "frame_streams")
     return _slice_streams(out, stream_lens)
 
 

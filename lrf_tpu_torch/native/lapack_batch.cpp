@@ -9,8 +9,11 @@
 // in column j, as scipy.linalg.eigh returns them. Every per-matrix `info`
 // goes to `info`; the caller checks them.
 //
-// Instances. The batch is split in contiguous chunks over worker threads,
-// each of which holds one LAPACK instance alone for its chunk. Instance 0 is
+// Instances. Worker threads take the batch's matrices one at a time from a
+// shared counter, each holding one LAPACK instance alone, so that a worker
+// whose core is busy with other work takes fewer of them instead of holding
+// up the batch; which instance codes a matrix does not change its bits (see
+// below). Instance 0 is
 // the routines handed in (scipy's own OpenBLAS). OpenBLAS takes every
 // level-2 and level-3 work buffer from one process-wide pool under one
 // mutex, and ?syevd of a 64 x 64 matrix asks it a few hundred times, so
@@ -29,6 +32,7 @@
 #include <dlfcn.h>
 
 #include <algorithm>
+#include <atomic>
 #include <condition_variable>
 #include <cstdint>
 #include <mutex>
@@ -111,15 +115,16 @@ void call(const Instance& inst, char* jobz, char* uplo, int* n, T* a, int* lda, 
     reinterpret_cast<Syevd<T>>(fn)(jobz, uplo, n, a, lda, w, work, lwork, iwork, liwork, info);
 }
 
-template <typename T>
-void run_chunk(const Instance& inst, const T* a, T* w, T* v, int n, int64_t begin, int64_t end, int32_t* info) {
+// The matrices whose indices `next()` hands out, until it gives `count`.
+template <typename T, typename Next>
+void run_items(const Instance& inst, const T* a, T* w, T* v, int n, int64_t count, Next next, int32_t* info) {
   const int64_t nn = static_cast<int64_t>(n) * n;
   int order = n, lda = n;
   int lwork = 1 + 6 * n + 2 * n * n, liwork = 3 + 5 * n;
   char jobz = 'V', uplo = 'L';
   std::vector<T> buf(nn), work(lwork);
   std::vector<int> iwork(liwork);
-  for (int64_t i = begin; i < end; ++i) {
+  for (int64_t i = next(); i < count; i = next()) {
     const T* src = a + i * nn;
     for (int r = 0; r < n; ++r)
       for (int c = 0; c < n; ++c) buf[r + static_cast<int64_t>(c) * n] = src[static_cast<int64_t>(r) * n + c];
@@ -149,14 +154,17 @@ int syevd_batch(const T* a, T* w, T* v, int64_t count, int64_t n, int32_t thread
   const int order = static_cast<int>(n);
   int64_t workers = std::min(threads > 0 ? static_cast<int64_t>(threads) : instances, count);
   if (workers <= 1) {
+    int64_t i = 0;
     try {
-      run_chunk<T>(first, a, w, v, order, 0, count, info);
+      run_items<T>(first, a, w, v, order, count, [&i] { return i++; }, info);
     } catch (...) {
       return kFailed;
     }
     return 0;
   }
   std::vector<char> failed(workers, 0);
+  std::atomic<int64_t> taken{0};
+  const auto next = [&taken] { return taken.fetch_add(1, std::memory_order_relaxed); };
   std::vector<std::thread> team;
   bool spawned = true;
   try {
@@ -165,7 +173,7 @@ int syevd_batch(const T* a, T* w, T* v, int64_t count, int64_t n, int32_t thread
       team.emplace_back([&, k] {
         int held = pool.acquire();
         try {
-          run_chunk<T>(pool.all[held], a, w, v, order, k * count / workers, (k + 1) * count / workers, info);
+          run_items<T>(pool.all[held], a, w, v, order, count, next, info);
         } catch (...) {
           failed[k] = 1;
         }

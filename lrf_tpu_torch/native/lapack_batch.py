@@ -107,9 +107,10 @@ def syevd_batch(a: np.ndarray, threads: int = 0) -> tuple[np.ndarray, np.ndarray
     n)` with eigenvector j in column j, as `scipy.linalg.eigh(a,
     driver="evd")` gives them (its lower triangle is read).
 
-    `threads` workers split the batch in contiguous chunks, at most one per
-    matrix and per instance (0: one per instance), each holding one
-    instance alone. With one worker the batch runs on the calling thread
+    `threads` workers, at most one per matrix and per instance (0: one per
+    instance), each holding one instance alone, take the matrices one at a
+    time from a shared counter, so that a worker whose core is busy takes
+    fewer. With one worker the batch runs on the calling thread
     through scipy's own instance, on the thread count scipy's OpenBLAS has.
     Raises `np.linalg.LinAlgError` naming the first matrix whose `info` is
     not 0.

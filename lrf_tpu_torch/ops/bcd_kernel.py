@@ -283,9 +283,10 @@ class _KernelLib:
         return sum(self.counts.values())
 
     def digest(self) -> str:
-        """Hash of every file under csrc/ (names and contents) and the nvcc flags."""
+        """Hash of every file under csrc/ but the DEFLATE kernel's (`deflate*`,
+        built by `ops/deflate.py`), names and contents, and the nvcc flags."""
         h = hashlib.sha256(" ".join(NVCC_FLAGS + self.defines).encode())
-        for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        for path in sorted(p for p in CSRC.rglob("*") if p.is_file() and not p.name.startswith("deflate")):
             h.update(str(path.relative_to(CSRC)).encode() + b"\0")
             h.update(path.read_bytes() + b"\0")
         return h.hexdigest()[:16]

@@ -30,7 +30,12 @@ The int8 factors, gathered on the mesh's first device, leave it raw
 packed (`"entropy"`, `ops/entropy.py`), as one buffer copied to pinned host
 memory. The host tail (`_serialize_batch`) turns them into finished streams
 in one native call (`native/fibercodec.cpp`: entropy decode, per-fiber
-DEFLATE and framing). All modes give the same bytes.
+DEFLATE and framing). All modes give the same bytes. On a card with raw
+int8 factors and a coder that gives zlib-9 bytes ("zlib" at level 9, or
+"best" in a native build without libdeflate, as on a host without it), the
+fibers are DEFLATEd on the card instead (`ops/deflate.py`, the same bytes):
+the fetch carries the streams and their lengths, and the host only frames
+them.
 `sharded_qmf_encode_batches` pipelines many batches: device work and copies
 stay on the calling thread while two workers serialize earlier batches.
 Under a profiler both entry points record the `lrf.encode.*` spans of
@@ -39,6 +44,7 @@ Under a profiler both entry points record the `lrf.encode.*` spans of
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import time
@@ -58,6 +64,7 @@ from lrf_tpu_torch.models.container import (
 )
 from lrf_tpu_torch.models.qmf import _channel_ranks, _padded_size
 from lrf_tpu_torch.native import fibercodec as _native
+from lrf_tpu_torch.ops import deflate as _deflate
 from lrf_tpu_torch.ops import entropy as _entropy
 from lrf_tpu_torch.ops.bcd import sharded_bcd, sharded_svd_init, svd_init, svd_init_shared
 from lrf_tpu_torch.ops.bcd_kernel import bcd, bcd_reference
@@ -193,10 +200,35 @@ def _unpack_factors(packed: np.ndarray, shapes, dtype, lo: int, bits: int):
     return out
 
 
+class _Deflated(tuple):
+    """`deflate_fibers`' `(slots, lens)`, made on the device's side stream
+    (`ops/deflate.py::side_stream`), which `_start_fetch` copies them on;
+    with the `lrf.encode.deflate` span of their launch (None while nothing
+    records), whose `bytes_out` the fetch fills in once the lengths reach
+    the host."""
+
+    span = None
+    stream = None
+
+
+def _card_deflate(device: torch.device, dtype, batch, ms) -> bool:
+    """Whether a batch's raw factors are DEFLATEd on the card: a CUDA device,
+    int8 factors of a known batch, a coder that gives zlib-9 bytes ("zlib"
+    at level 9, or "best" in a native build without libdeflate), and fibers
+    within the kernel's bound. Read when the encoder is built."""
+    if device.type != "cuda" or batch is None or np.dtype(dtype) != np.int8:
+        return False
+    backend, level = get_fiber_coder()
+    if not ((backend == "zlib" and level == 9) or (backend == "best" and "deflate" not in _native.backends())):
+        return False
+    with torch.cuda.device(device):
+        return max(ms) <= _deflate.KERNEL.max_fiber()
+
+
 def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, backend, pack, exc_rows, init):
     """The batched encode function for one config: `(B, 3, H, W)` -> the 6
-    factors on the mesh's first device, or a 1-tuple holding the packed
-    transport buffer."""
+    factors on the mesh's first device, a 1-tuple holding the packed
+    transport buffer, or (pack "zlib9") the card's DEFLATE output."""
     run_bcd = bcd_reference if backend == "torch" else bcd
     method = "randomized" if init == "fast" else "gram"
 
@@ -256,6 +288,16 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
             return (torch.cat([seg_base, main, exc]),)
         if pack == "flat":
             return (_pack_factors(factors, *_pack_params(bounds)),)
+        if pack == "zlib9":
+            side = _deflate.side_stream(mesh.first)
+            side.wait_stream(torch.cuda.current_stream(mesh.first))
+            with torch.cuda.stream(side), profiling.span("lrf.encode.deflate",
+                                                         bytes_in=sum(f.nbytes for f in factors)) as s:
+                for f in factors:
+                    f.record_stream(side)
+                out = _Deflated(_deflate.deflate_fibers(factors))
+            out.span, out.stream = s, side
+            return out
         return tuple(factors)
 
     return encode
@@ -283,9 +325,15 @@ def build_sharded_encoder(
     `(B, 3, H, W)` tensor (on the device; on a mesh with several data rows,
     anywhere) to the 6 per-channel factor tensors `(B, ., R)` on the mesh's
     first device, or, when a pack mode is active, to a 1-tuple holding the
-    packed int32 transport buffer; `metadata` is the stream metadata every
-    image shares; `pack_spec` (None for raw factors) is what the host needs
-    to reverse the pack. On a mesh B must divide evenly over the data rows.
+    packed int32 transport buffer, or, where the card DEFLATEs the fibers
+    (raw int8 factors of a known `batch` on a card, under a coder that gives
+    zlib-9 bytes: `_card_deflate`), to their zlib streams in fixed slots and
+    their lengths, made on the device's side stream: fetch them with
+    `_start_fetch`, which copies on that stream, or after synchronizing the
+    device; `metadata` is the stream metadata every image shares;
+    `pack_spec` (None for raw factors) is what the host needs to reverse
+    the pack, or to frame the card's streams (mode "zlib9"). On a mesh B
+    must divide evenly over the data rows.
 
     `pack`: None/False/"" keeps raw factors; "flat" (or True) packs them
     `30 // bits` values per word; "entropy" packs them delta+Huffman
@@ -340,13 +388,16 @@ def build_sharded_encoder(
 
     pack_spec = None
     exc_budget = None
-    if pack:
-        p, q = patch_size
-        shapes = []
-        for padded, r in zip(padded_sizes, ranks):
-            shapes.append((batch, (padded[0] // p) * (padded[1] // q), r))  # u
-            shapes.append((batch, p * q, r))  # v
-        shapes = tuple(shapes)
+    p, q = patch_size
+    shapes = []
+    for padded, r in zip(padded_sizes, ranks):
+        shapes.append((batch, (padded[0] // p) * (padded[1] // q), r))  # u
+        shapes.append((batch, p * q, r))  # v
+    shapes = tuple(shapes)
+    if not pack and _card_deflate(mesh.first, dtype, batch, [s[1] for s in shapes]):
+        pack = "zlib9"
+        pack_spec = {"mode": pack, "shapes": shapes, "caps": tuple(_deflate.slot_caps([s[1] for s in shapes]))}
+    elif pack:
         pack_spec = {"mode": pack, "shapes": shapes, "lo": lo, "bits": bits, "dtype": np.dtype(dtype)}
         if pack == "entropy":
             values, _, bounds_idx = _entropy.segment_layout(shapes)
@@ -377,19 +428,31 @@ def _to_device(images, mesh: Mesh) -> torch.Tensor:
 
 
 def _start_fetch(out) -> HostCopy:
-    """The encoder's output on its way to pinned host memory."""
-    with profiling.span("lrf.encode.fetch_start", bytes_in=sum(t.nbytes for t in out)):
-        return HostCopy(out)
+    """The encoder's output on its way to pinned host memory, on the stream
+    that made it."""
+    stream = getattr(out, "stream", None)
+    with profiling.span("lrf.encode.fetch_start", bytes_in=sum(t.nbytes for t in out)), (
+        torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+    ):
+        copy = HostCopy(out)
+    copy.deflate_span = getattr(out, "span", None)
+    return copy
 
 
 def _fetch_encoded(copy: HostCopy, pack_spec):
     """Wait for a fetch and lay it out for `_serialize_batch`: the 6 factor
-    arrays (raw), the packed words (flat), or `(seg_base, main, exc)` with
-    only the used continuation rows (entropy). Raises EntropyOverflowError
-    when the entropy pack ran out of rows."""
+    arrays (raw), the packed words (flat), `(seg_base, main, exc)` with
+    only the used continuation rows (entropy), or the card's `(slots,
+    lens)` (zlib9). Raises EntropyOverflowError when the entropy pack ran
+    out of rows."""
     with profiling.span("lrf.encode.fetch_wait", mirror=True):
         host = copy.wait()
     if pack_spec is None:
+        return host
+    if pack_spec["mode"] == "zlib9":
+        span = getattr(copy, "deflate_span", None)
+        if span is not None:
+            span.bytes_out = int(host[1].sum(dtype=np.int64))
         return host
     flat = host[0].view(np.uint32)
     if pack_spec["mode"] != "entropy":
@@ -434,10 +497,15 @@ def _serialize_batch(host_out, pack_spec, metadata, b: int) -> list[bytes]:
     beside device work on the calling thread. Int8 factors, whatever the
     transport, take one native call that does the whole stream assembly
     (entropy decode, per-fiber DEFLATE with the process-wide coder, inner
-    metadata, framing); other dtypes go through the container per factor.
+    metadata, framing); the card's zlib streams take one that frames them;
+    other dtypes go through the container per factor.
     """
     backend, level = get_fiber_coder()
     encoded_metadata = dict_to_bytes(metadata)
+    if pack_spec is not None and pack_spec["mode"] == "zlib9":
+        slots, lens = host_out
+        rs = [s[2] for s in pack_spec["shapes"]]
+        return _native.frame_streams(slots, lens, b, rs, pack_spec["caps"], encoded_metadata, _inner_metadata(rs))
     if pack_spec is not None and pack_spec["mode"] == "entropy":
         seg_base, main, exc = host_out
         rs = [s[2] for s in pack_spec["shapes"]]

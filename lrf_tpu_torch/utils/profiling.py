@@ -28,7 +28,8 @@ boundary moves data. The spans of one pipeline call:
 | `lrf.encode.init.gram_fetch` | the Grams to the host (waits for them) | in: the Grams |
 | `lrf.encode.init.eigh` | the host `?syevd` batch alone | in: the Grams |
 | `lrf.encode.bcd` | the BCD runs (host time to enqueue) | |
-| `lrf.encode.fetch_start` | the factors' device -> pinned-host copy started | in: the factors |
+| `lrf.encode.deflate` | the card's zlib-9 of the fibers enqueued (`ops/deflate.py`; raw int8 factors under a zlib-9 coder on a card) | in: the factors; out: the streams, once fetched |
+| `lrf.encode.fetch_start` | the factors' (or the card's streams') device -> pinned-host copy started | in: the buffers |
 | `lrf.encode.fetch_wait` | the wait for that copy | |
 | `lrf.encode.serializer_queue` | submit to a serializer worker's start (worker) | |
 | `lrf.encode.serialize` | the native serializer (worker) | in: factors; out: streams |

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from lrf_tpu_torch.ops import bcd, bcd_kernel
+from lrf_tpu_torch.ops import bcd, bcd_kernel, deflate
 
 RNG = np.random.default_rng(23)
 # The shared memory an H100 block may opt into.
@@ -195,14 +195,26 @@ def test_library_path_covers_every_file_under_csrc(tmp_path, monkeypatch):
     lib = bcd_kernel._KernelLib()
     paths = {lib.library_path(name) for name in bcd_kernel.SOURCES}
     assert len(paths) == len(bcd_kernel.SOURCES)
-    files = sorted(p for p in csrc.iterdir() if p.is_file())
+    # the DEFLATE kernel's sources (`deflate*`) build a library of their own
+    # (`ops/deflate.py`), whose path hashes them instead
+    files = sorted(p for p in csrc.iterdir() if p.is_file() and not p.name.startswith("deflate"))
+    own = sorted(p for p in csrc.iterdir() if p.is_file() and p.name.startswith("deflate"))
     assert {f.name for f in files} >= set(bcd_kernel.SOURCES.values())
+    assert {f.name for f in own} == {"deflate.cu", "deflate_core.h"}
     seen = {lib.digest()}
     for f in files:  # an edit of any source or header
         f.write_bytes(f.read_bytes() + b"\n// edited\n")
         seen.add(lib.digest())
     (csrc / "common.cuh").write_text("// a new header\n")
     seen.add(lib.digest())
+    before = lib.digest()
+    monkeypatch.setattr(deflate, "SOURCE", csrc / "deflate.cu")
+    monkeypatch.setattr(deflate, "CORE", csrc / "deflate_core.h")
+    deflate_paths = {deflate.KERNEL.library_path()}
+    for f in own:
+        f.write_bytes(f.read_bytes() + b"\n// edited\n")
+        deflate_paths.add(deflate.KERNEL.library_path())
+    assert lib.digest() == before and len(deflate_paths) == len(own) + 1
     monkeypatch.setattr(bcd_kernel, "NVCC_FLAGS", bcd_kernel.NVCC_FLAGS + ("-lineinfo",))
     seen.add(lib.digest())
     assert len(seen) == len(files) + 3
