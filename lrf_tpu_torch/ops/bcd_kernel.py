@@ -22,6 +22,9 @@ patch stacks and returns integer-valued float32 `(u, v)`:
 - on CPU tensors it runs `bcd_reference`, the plain PyTorch version;
 - anything else raises. There is no fallback from one to the other.
 
+Under a profiler each dispatch records a `lrf.encode.bcd.launch` span
+whose `attrs` name its route (the kernel, or "reference") and shape.
+
 `qmf_decompose_cuda` is the SVD init followed by `bcd`, the counterpart of
 `lrf_tpu.ops.bcd_pallas.qmf_decompose_pallas`. `lrf_tpu_torch.ops` exports
 `bcd` as `bcd_cuda` (its name `bcd` is the solver's module there).
@@ -49,6 +52,7 @@ from typing import Optional
 import torch
 
 from lrf_tpu_torch.ops.bcd import bcd_sweep, make_project, svd_init, update_columns
+from lrf_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -405,8 +409,9 @@ class _KernelLib:
                     "occupancy query")
         return out.value
 
-    def launch(self, x, u, v, num_iters: int, lo: float, hi: float, variant: Optional[str] = None) -> None:
-        """Run the sweeps in place on `u`, `v`; `variant` forces a kernel."""
+    def launch(self, x, u, v, num_iters: int, lo: float, hi: float, variant: Optional[str] = None) -> str:
+        """Run the sweeps in place on `u`, `v`; `variant` forces a kernel.
+        Returns the kernel that ran."""
         libs = self.lib()
         b, m, n = x.shape
         r = u.shape[-1]
@@ -439,6 +444,7 @@ class _KernelLib:
             )
         self._check(lib, err, f"{plan.variant} launch")
         self._count(plan.variant)
+        return plan.variant
 
     def _count(self, variant: str) -> None:
         with self._lock:  # data-mesh rows launch from threads of their own
@@ -465,6 +471,10 @@ def bcd_reference(x, u0, v0, num_iters: int = 10, bounds=(-16, 15)):
         u, v, w = bcd_sweep(x, u, v, w, factor=(0, 1), project=project)
     return u, v
 
+
+# The span of one dispatch of `bcd`, recorded while a profiler runs
+# (`utils/profiling.py`): its `attrs` hold the route and (B, M, N, R).
+LAUNCH_SPAN = "lrf.encode.bcd.launch"
 
 # Float32 represents every integer of magnitude below 2**24 exactly.
 EXACT_LIMIT = 2.0**24
@@ -523,7 +533,10 @@ def bcd(
     if len(devices) != 1:
         raise ValueError(f"bcd inputs lie on several devices: {devices}")
     if x.device.type == "cpu":
-        return bcd_reference(x, u0, v0, num_iters=num_iters, bounds=bounds)
+        with profiling.span(LAUNCH_SPAN) as s:
+            if s is not None:
+                s.attrs = {"route": "reference", "shape": (b, m, n, r)}
+            return bcd_reference(x, u0, v0, num_iters=num_iters, bounds=bounds)
     if x.device.type != "cuda":
         raise ValueError(f"bcd runs on CUDA or CPU tensors, not {x.device}")
     if num_iters == 0:
@@ -542,7 +555,10 @@ def bcd(
         v = torch.empty((b, n, r), dtype=torch.float32, device=x.device)
         u.copy_(u0)
         v.copy_(v0)
-        KERNEL.launch(x, u, v, num_iters, lo, hi)
+        with profiling.span(LAUNCH_SPAN) as s:
+            route = KERNEL.launch(x, u, v, num_iters, lo, hi)
+            if s is not None:
+                s.attrs = {"route": route, "shape": (b, m, n, r)}
     return u, v
 
 

@@ -7,7 +7,8 @@ its host twin.
 `csrc/deflate.cu`: one launch per group of factors that share M, on the
 current stream, counted in `KERNEL.counts`. It returns the streams in
 fixed slots (`slot_caps`) and their lengths, for one copy to the host,
-where `native/fibercodec.py::frame_streams` frames them.
+where `native/fibercodec.py::frame_streams` frames them. Under a profiler
+each launch records a `lrf.encode.deflate.launch` span.
 
 `csrc/deflate_core.h` holds the match search, zlib's lazy parse and its
 block coder, which the kernel and the host twin (`native/deflate_twin.cpp`,
@@ -37,6 +38,7 @@ import torch
 from lrf_tpu_torch.native import fibercodec as _native
 from lrf_tpu_torch.native.fibercodec import GxxLib
 from lrf_tpu_torch.ops.bcd_kernel import BUILD_DIR, CSRC, NVCC_FLAGS, _find_nvcc
+from lrf_tpu_torch.utils import profiling
 
 SOURCE = CSRC / "deflate.cu"
 CORE = CSRC / "deflate_core.h"
@@ -46,6 +48,9 @@ TWIN_SOURCE = Path(_native.__file__).resolve().parent / "deflate_twin.cpp"
 MAX_FIBER = 65273
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The span of one launch, recorded while a profiler runs (`utils/profiling.py`):
+# its `attrs` hold M and the fiber count, `bytes_in` the fibers' bytes.
+LAUNCH_SPAN = "lrf.encode.deflate.launch"
 
 
 def slot_caps(ms: Sequence[int]) -> list[int]:
@@ -202,8 +207,12 @@ def deflate_fibers(factors: Sequence[torch.Tensor]) -> tuple[torch.Tensor, torch
             group = [k for k in range(len(factors)) if ms[k] == m and per[k]]
             for i in range(0, len(group), max_group):
                 ks = group[i : i + max_group]
-                KERNEL.launch([factors[k] for k in ks], m, caps[ks[0]], [slot_base[k] for k in ks],
-                              [lens_base[k] for k in ks], out, lens)
+                with profiling.span(LAUNCH_SPAN) as s:
+                    KERNEL.launch([factors[k] for k in ks], m, caps[ks[0]], [slot_base[k] for k in ks],
+                                  [lens_base[k] for k in ks], out, lens)
+                    if s is not None:
+                        fibers = sum(per[k] for k in ks)
+                        s.attrs, s.bytes_in = {"M": m, "fibers": fibers}, m * fibers
     return out, lens
 
 

@@ -16,8 +16,9 @@ The recorder. The pipelines (`parallel/encode.py`, `parallel/decode.py`)
 record a span at each layer boundary: its name and thread, start and end
 on `time.perf_counter_ns()`, the span that caused it (across threads too:
 a serializer span's parent is the batch that submitted it), the batch's
-sequence number in its pipeline call, and bytes in and out where the
-boundary moves data. The spans of one pipeline call:
+sequence number in its pipeline call, bytes in and out where the
+boundary moves data, and a launch's attributes (`attrs`). The spans of
+one pipeline call:
 
 | Span | What it covers | Bytes |
 | --- | --- | --- |
@@ -28,7 +29,9 @@ boundary moves data. The spans of one pipeline call:
 | `lrf.encode.init.gram_fetch` | the Grams to the host (waits for them) | in: the Grams |
 | `lrf.encode.init.eigh` | the host `?syevd` batch alone | in: the Grams |
 | `lrf.encode.bcd` | the BCD runs (host time to enqueue) | |
+| `lrf.encode.bcd.launch` | one BCD dispatch (`ops/bcd_kernel.py::bcd`); `attrs`: `route` (`bcd_cluster`, `bcd_cluster_wide`, `bcd_grid`, `bcd`, or `reference` for the plain version on the CPU) and `shape` `(B, M, N, R)` | |
 | `lrf.encode.deflate` | the card's zlib-9 of the fibers enqueued (`ops/deflate.py`; raw int8 factors under a zlib-9 coder on a card) | in: the factors; out: the streams, once fetched |
+| `lrf.encode.deflate.launch` | one DEFLATE launch (`deflate_fibers`); `attrs`: `M` and `fibers` | in: the launch's fibers |
 | `lrf.encode.fetch_start` | the factors' (or the card's streams') device -> pinned-host copy started | in: the buffers |
 | `lrf.encode.fetch_wait` | the wait for that copy | |
 | `lrf.encode.serializer_queue` | submit to a serializer worker's start (worker) | |
@@ -100,6 +103,7 @@ class Span:
     bytes_out: Optional[int] = None
     row: Optional[int] = None  # a data mesh's row
     mirrored: bool = False  # also a `record_function` in the profiler
+    attrs: Optional[dict] = None  # a launch's: route and shape (BCD), M and fibers (DEFLATE)
 
 
 class _Recorder:
@@ -298,6 +302,7 @@ def _chrome_events(spans, trace_start_ns: int, base_ns: int, pid: int) -> list:
                 stack.pop()
             args = {k: v for k, v in (("id", s.id), ("parent", s.parent), ("batch", s.batch), ("row", s.row),
                                        ("bytes_in", s.bytes_in), ("bytes_out", s.bytes_out)) if v is not None}
+            args.update(s.attrs or {})
             ts = profiler_us(s.start_ns, trace_start_ns) + offset_us
             ev = {"name": s.name, "cat": "lrf", "pid": pid, "tid": tid, "ts": ts, "args": args}
             if stack and s.end_ns > stack[-1].end_ns:
