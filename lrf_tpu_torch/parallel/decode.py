@@ -26,15 +26,28 @@ offset and the nearest upsample's indices are pageable uploads, which wait
 on the row's device), and every device of a row
 does the row's work (JAX's `P("data")` replicates it over the patch axis).
 Per-image results equal `lrf_tpu_torch.qmf_decode`'s.
-`sharded_qmf_decode_batches` overlaps the host stage of the next batch with
-the device work of the current one. Under a profiler both entry points
-record the `lrf.decode.*` spans of `utils/profiling.py`.
+
+Pixels to the host: on a card each data row's pixels go, on the stream
+that made them, by an asynchronous copy into the row's slice of one
+page-locked `(B, 3, H, W)` block from torch's caching host allocator, with
+an event per row (`_PixelCopy`); the answer is a numpy view of that block,
+which returns to torch's cache when the caller drops the array, and is
+never copied into again while the caller holds it. CPU pixels are taken as
+they are. `PIXEL_COPY_COUNTS` counts the batches of each kind, and the
+pinned ones whose copy had ended before the calling thread waited.
+
+`sharded_qmf_decode_batches` overlaps three batches: the host stage of
+batch i+1 on a worker, the device work of batch i, and the copy of batch
+i-1's pixels, which the calling thread waits for only after it has
+enqueued batch i. Under a profiler both entry points record the
+`lrf.decode.*` spans of `utils/profiling.py`.
 """
 
 from __future__ import annotations
 
 import json
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,9 +63,8 @@ from lrf_tpu_torch.ops.resample import chroma_upsample
 from lrf_tpu_torch.parallel.encode import _pack_params
 from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
 from lrf_tpu_torch.utils import profiling
-from lrf_tpu_torch.utils.transfer import to_host
 
-__all__ = ["TRANSPORT_COUNTS", "sharded_qmf_decode_batch", "sharded_qmf_decode_batches"]
+__all__ = ["PIXEL_COPY_COUNTS", "TRANSPORT_COUNTS", "sharded_qmf_decode_batch", "sharded_qmf_decode_batches"]
 
 _TRANSPORTS = ("flat", "dpack")
 
@@ -68,6 +80,11 @@ _DPACK_BUCKET_ROWS = 4096
 # Batches decoded per upload transport: "dpack", "flat" (bit-packed) or
 # "unpacked" (a value outside the bounds, or a non-int8 factor).
 TRANSPORT_COUNTS = {"dpack": 0, "flat": 0, "unpacked": 0}
+# Batches' pixels to the host: "pinned" (an asynchronous copy into a
+# page-locked block), "host" (CPU pixels taken as they are), and "ready":
+# pinned batches whose copy had ended when the calling thread came to wait
+# (the pipeline's overlap hit rate is ready / pinned).
+PIXEL_COPY_COUNTS = {"pinned": 0, "host": 0, "ready": 0}
 
 
 def _check_args(out: str, transport: str) -> None:
@@ -253,34 +270,123 @@ def _reconstruct(flat: torch.Tensor, metadata, shapes, in_dtype: str = "int8", p
     return to_dtype(ycbcr_to_rgb(image), metadata["dtype"])
 
 
-def _device_decode(flat: np.ndarray, metadata, shapes, in_dtype, pack, mesh: Mesh, out: str):
+class _PixelCopy:
+    """One batch's pixels on their way to host memory.
+
+    On a card, each data row copies its pixels, on the stream that made
+    them, into its batch slice of one page-locked `(B, 3, H, W)` block from
+    torch's caching host allocator (`copy_(non_blocking=True)`), and records
+    an event; `wait()` returns a numpy view of the block, which goes back to
+    the cache when the caller drops the array. A block is never handed out
+    twice, so an array the caller holds never changes. CPU pixels are taken
+    as they are.
+    """
+
+    def __init__(self, shape, dtype, devices):
+        rows = len(devices)
+        self._rows = shape[0] // rows
+        self._parts: list = [None] * rows
+        self._events: list = []
+        self.pinned = any(d.type == "cuda" for d in devices)
+        self._block = torch.empty(shape, dtype=dtype, pin_memory=True) if self.pinned else None
+
+    def start(self, row: int, pixels: torch.Tensor) -> None:
+        """Start row `row`'s copy; call it on the thread that made `pixels`."""
+        if self._block is None:
+            self._parts[row] = pixels
+            return
+        self._block[row * self._rows : (row + 1) * self._rows].copy_(pixels, non_blocking=True)
+        if pixels.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(pixels.device))
+            self._events.append(event)
+
+    def ready(self) -> bool:
+        """Whether every row's copy has ended."""
+        return all(e.query() for e in self._events)
+
+    def wait(self) -> np.ndarray:
+        for e in self._events:
+            e.synchronize()  # releases the GIL while it waits
+        if self._block is not None:
+            return self._block.numpy()
+        parts = [p.numpy() for p in self._parts]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+class _Started(NamedTuple):
+    """A batch whose device stage `_device_start` began."""
+
+    span: Optional[profiling.Span]  # its open `lrf.decode.device`
+    result: object  # a `_PixelCopy`, or the pixels on the device (``out="device"``)
+
+
+def _device_start(flat: np.ndarray, metadata, shapes, in_dtype, pack, mesh: Mesh, out: str) -> _Started:
+    """Enqueue a batch's upload and reconstruction and, for ``out="host"``,
+    start its pixels' copy to the host."""
     if pack is None:
         kind = "unpacked"
     else:
         kind = "dpack" if pack[0] == "dpack" else "flat"
         flat = flat.view(np.int32)
     TRANSPORT_COUNTS[kind] += 1
-    with profiling.span("lrf.decode.device"):
+    device_span = profiling.begin("lrf.decode.device")
+    with profiling.within(device_span):
         with profiling.span("lrf.decode.upload", bytes_in=flat.nbytes):
             host = torch.from_numpy(flat)
             # dpack: one device by construction (_inflate_streams' gate)
             parts = [host.to(mesh.first)] if kind == "dpack" else mesh.split_batch(host)
+        rows = [(mesh.first,)] if kind == "dpack" else mesh.devices
+        copy = None
+        if out == "host":
+            b = pack[1] if kind == "dpack" else flat.shape[0]
+            shape = (b, 3, *metadata["original size"][0])
+            copy = _PixelCopy(shape, torch_dtype(metadata["dtype"]), [row[0] for row in rows])
         with profiling.span("lrf.decode.reconstruct"):
-            if kind == "dpack":
-                parts = [_reconstruct(parts[0], metadata, shapes, in_dtype, pack)]
-            else:
-                def decode_row(part, devices):
-                    copies = [_reconstruct(part.to(d), metadata, shapes, in_dtype, pack) for d in devices]
-                    return copies[0]
 
-                parts = mesh.map_rows(decode_row, parts)
-        if out != "host":
-            return parts[0] if len(parts) == 1 else torch.cat([p.to(mesh.first) for p in parts])
-        with profiling.span("lrf.decode.to_host") as s:
-            pixels = to_host(parts[0]) if len(parts) == 1 else np.concatenate([to_host(p) for p in parts])
+            def decode_row(indexed, devices):
+                i, part = indexed
+                pixels = [_reconstruct(part.to(d), metadata, shapes, in_dtype, pack) for d in devices][0]
+                if copy is not None:
+                    copy.start(i, pixels)
+                return pixels
+
+            if kind == "dpack":
+                parts = [decode_row((0, parts[0]), rows[0])]
+            else:
+                parts = mesh.map_rows(decode_row, list(enumerate(parts)))
+    if copy is not None:
+        return _Started(device_span, copy)
+    return _Started(device_span, parts[0] if len(parts) == 1 else torch.cat([p.to(mesh.first) for p in parts]))
+
+
+def _device_finish(started: _Started):
+    """Wait for what `_device_start` began: the pixels as a numpy array (a
+    view of a page-locked block on a card), or the device tensor."""
+    device_span, result = started
+    if isinstance(result, _PixelCopy):
+        with profiling.within(device_span), profiling.span("lrf.decode.to_host") as s:
+            ready = result.ready()
+            pixels = result.wait()
+            PIXEL_COPY_COUNTS["pinned" if result.pinned else "host"] += 1
+            if result.pinned and ready:
+                PIXEL_COPY_COUNTS["ready"] += 1
             if s is not None:
                 s.bytes_in = pixels.nbytes
-        return pixels
+                s.attrs = {"pinned": result.pinned, "ready": ready}
+        result = pixels
+    profiling.end(device_span)
+    return result
+
+
+def _device_decode(flat, metadata, shapes, in_dtype, pack, mesh: Mesh, out: str):
+    """One batch's device stage, to its finished pixels. `flat` is the
+    upload buffer of `_inflate_streams`, started here, or a `_Started`
+    batch (the pipeline's, begun before the next batch was enqueued), only
+    finished here: every answer of both entry points leaves through this."""
+    if not isinstance(flat, _Started):
+        flat = _device_start(flat, metadata, shapes, in_dtype, pack, mesh, out)
+    return _device_finish(flat)
 
 
 def sharded_qmf_decode_batch(streams, device="cuda", out: str = "host", transport: str = "flat"):
@@ -288,8 +394,9 @@ def sharded_qmf_decode_batch(streams, device="cuda", out: str = "host", transpor
     (one device or a `Mesh`).
 
     Returns a `(B, 3, H, W)` array of the original dtype: numpy when
-    ``out="host"``, the tensor on the mesh's first device when
-    ``out="device"``. `transport`: the upload, `"flat"` (default) or
+    ``out="host"`` (on a card, a view of a page-locked host block, copied
+    into and waited for at once), the tensor on the mesh's first device
+    when ``out="device"``. `transport`: the upload, `"flat"` (default) or
     `"dpack"` (one device only; see the module docstring).
     """
     _check_args(out, transport)
@@ -321,29 +428,50 @@ def sharded_qmf_decode_batches(stream_batches, device="cuda", out: str = "host",
     a worker thread, no torch state) overlaps the upload and reconstruction
     of batch i on the calling thread, where all torch work stays, except
     that a mesh with several data rows reconstructs each row on a thread of
-    its own (`Mesh.map_rows`).
+    its own (`Mesh.map_rows`). Batch i-1's pixels travel to the host
+    meanwhile: the calling thread waits for them (the wait releases the
+    GIL) only once batch i is enqueued, then yields them. With
+    ``out="host"`` on a card each answer is a view of its own page-locked
+    host block; at most two batches' pixels are in flight beyond the
+    answers the caller holds.
     """
     _check_args(out, transport)
     mesh = as_mesh(device)
     profiling.follow_profiler()
 
-    def finish(fut, root):
+    def start(fut, root):
         profiling.follow_profiler()
         with profiling.within(root):
             with profiling.span("lrf.decode.inflate_wait", mirror=True):
                 staged = fut.result()
-            pixels = _device_decode(*staged, mesh, out)
+            return root, staged, _device_start(*staged, mesh, out)
+
+    def finish(root, staged, started):
+        profiling.follow_profiler()
+        with profiling.within(root):
+            pixels = _device_decode(started, *staged[1:], mesh, out)
         profiling.end(root)
         return pixels
 
+    on_device = None  # the batch whose pixels are on their way to the host
+
+    def advance(inflating):
+        """Start `inflating`'s device stage, then finish the batch before it."""
+        nonlocal on_device
+        previous, on_device = on_device, start(*inflating)
+        if previous is not None:
+            yield finish(*previous)
+
     with ThreadPoolExecutor(max_workers=1) as pool:
-        pending = None
+        inflating = None
         for seq, streams in enumerate(stream_batches):
             profiling.follow_profiler()
             root = profiling.begin("lrf.decode.batch", batch=seq)
             fut = pool.submit(_inflate_spanned, streams, mesh.size == 1, transport, root)
-            if pending is not None:
-                yield finish(*pending)
-            pending = (fut, root)
-        if pending is not None:
-            yield finish(*pending)
+            if inflating is not None:
+                yield from advance(inflating)
+            inflating = (fut, root)
+        if inflating is not None:
+            yield from advance(inflating)
+        if on_device is not None:
+            yield finish(*on_device)

@@ -17,8 +17,8 @@ record a span at each layer boundary: its name and thread, start and end
 on `time.perf_counter_ns()`, the span that caused it (across threads too:
 a serializer span's parent is the batch that submitted it), the batch's
 sequence number in its pipeline call, bytes in and out where the
-boundary moves data, and a launch's attributes (`attrs`). The spans of
-one pipeline call:
+boundary moves data, and a launch's or a copy's attributes (`attrs`).
+The spans of one pipeline call:
 
 | Span | What it covers | Bytes |
 | --- | --- | --- |
@@ -41,8 +41,9 @@ one pipeline call:
 | `lrf.decode.inflate` | parse, native inflate and pack (worker) | in: streams; out: upload |
 | `lrf.decode.parse` | its container parse, Python that holds the GIL (worker) | |
 | `lrf.decode.inflate_wait` | the calling thread's wait for the inflate | |
-| `lrf.decode.device` | upload, reconstruction, pixels to the host | |
-| `lrf.decode.upload` / `.reconstruct` / `.to_host` | its three parts | upload, to_host in |
+| `lrf.decode.device` | from the upload until its pixels are on the host (`begin`/`end`: in the pipeline it stays open while the next batch is enqueued) | |
+| `lrf.decode.upload` / `.reconstruct` | the upload; the reconstruction, ending in the pixels' copy to page-locked memory (enqueued) | upload in |
+| `lrf.decode.to_host` | the calling thread's wait for that copy; `attrs`: `pinned` (a page-locked copy, not CPU pixels taken as they are) and `ready` (the copy had ended before the wait) | in: the pixels |
 | `lrf.mesh.row` | one data row's work on its own thread (`Mesh.map_rows`) | |
 
 A span on the thread of its parent lies inside it, and so does one on a
@@ -103,7 +104,7 @@ class Span:
     bytes_out: Optional[int] = None
     row: Optional[int] = None  # a data mesh's row
     mirrored: bool = False  # also a `record_function` in the profiler
-    attrs: Optional[dict] = None  # a launch's: route and shape (BCD), M and fibers (DEFLATE)
+    attrs: Optional[dict] = None  # route and shape (BCD), M and fibers (DEFLATE), pinned and ready (to_host)
 
 
 class _Recorder:

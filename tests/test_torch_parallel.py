@@ -11,6 +11,11 @@
 - Batched decode takes the packed upload and equals per-image decode; so
   does the pipelined decode; the JAX package decodes the port's streams to
   the port's pixels.
+- The pipelined decode of 1-3 batches (and of 3 over a 2-row mesh) yields,
+  in order, each batch's one-shot pixels, which stay as they are while
+  later batches decode; it closes cleanly after its first answer; CPU
+  pixels are counted as taken as they are. On a card the answers are
+  views of page-locked blocks, and the wait for them releases the GIL.
 
 The JAX package is imported inside the tests that use it, so the `cuda`
 test runs on a GPU host without JAX:
@@ -19,6 +24,8 @@ test runs on a GPU host without JAX:
 """
 
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +38,7 @@ from lrf_tpu_torch.native import fibercodec as tnative
 from lrf_tpu_torch.ops import entropy as tentropy
 from lrf_tpu_torch.parallel import decode as tdec
 from lrf_tpu_torch.parallel import encode as tenc
+from lrf_tpu_torch.parallel.mesh import make_mesh
 from lrf_tpu_torch.utils.transfer import HostCopy
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "experiments", "data")
@@ -192,6 +200,53 @@ def test_batched_decode_takes_the_packed_upload(batch):
         np.testing.assert_array_equal(dec0[i], lt.qmf_decode(s, device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def stream_batches():
+    """Three CPU-encoded batches of two photos each, all different."""
+    photos = _photos(6, 48, 64)
+    return [lt.sharded_qmf_encode_batch(photos[2 * k : 2 * k + 2], device="cpu", **KW) for k in range(3)]
+
+
+def _held_in_order(batches, device, want):
+    """The pipeline's answers, each checked against `want`, the one-shot
+    decodes, as it comes, and copies of them taken then."""
+    got, snapshots = [], []
+    for k, pixels in enumerate(tdec.sharded_qmf_decode_batches(batches, device=device)):
+        np.testing.assert_array_equal(pixels, want[k])
+        got.append(pixels)
+        snapshots.append(pixels.copy())
+    assert len(got) == len(batches)
+    return got, snapshots
+
+
+@pytest.mark.parametrize("n,rows", [(1, 1), (2, 1), (3, 1), (3, 2)], ids=["1", "2", "3", "3-mesh2"])
+def test_pipelined_decode_yields_one_shot_pixels_in_order(stream_batches, n, rows):
+    device = make_mesh(data=rows, devices=["cpu"] * rows) if rows > 1 else "cpu"
+    want = [lt.sharded_qmf_decode_batch(s, device=device) for s in stream_batches[:n]]
+    before = dict(tdec.PIXEL_COPY_COUNTS)
+    got, snapshots = _held_in_order(stream_batches[:n], device, want)
+    # every answer held while later batches decoded is as it was yielded
+    for pixels, snap in zip(got, snapshots):
+        np.testing.assert_array_equal(pixels, snap)
+    counts = tdec.PIXEL_COPY_COUNTS
+    assert counts["host"] - before["host"] == n
+    assert counts["pinned"] == before["pinned"] and counts["ready"] == before["ready"]
+
+
+def test_device_decode_returns_a_finished_array(stream_batches):
+    staged = tdec._inflate_streams(stream_batches[0], True)
+    pixels = tdec._device_decode(*staged, tdec.as_mesh("cpu"), "host")
+    assert isinstance(pixels, np.ndarray) and pixels.dtype == np.uint8 and pixels.shape == (2, 3, 48, 64)
+    np.testing.assert_array_equal(pixels, lt.sharded_qmf_decode_batch(stream_batches[0], device="cpu"))
+
+
+def test_pipelined_decode_closes_after_its_first_answer(stream_batches):
+    gen = tdec.sharded_qmf_decode_batches(stream_batches, device="cpu")
+    first = next(gen)
+    gen.close()
+    np.testing.assert_array_equal(first, lt.sharded_qmf_decode_batch(stream_batches[0], device="cpu"))
+
+
 def test_jax_decodes_port_streams_to_port_pixels(batch):
     import lrf_tpu
 
@@ -227,3 +282,54 @@ def test_pipelined_encode_on_gpu_matches_one_shot():
     dec = [lt.sharded_qmf_decode_batch(s) for s in want]
     for got, d in zip(lt.sharded_qmf_decode_batches(want), dec):
         np.testing.assert_array_equal(got, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2], ids=["card", "mesh2"])
+def test_pipelined_decode_on_gpu_yields_pinned_views(stream_batches, rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    # two data rows on the first card: each row's copy into its slice, from its own thread
+    device = make_mesh(data=2, devices=["cuda:0"] * 2) if rows == 2 else "cuda"
+    want = [lt.sharded_qmf_decode_batch(s, device=device) for s in stream_batches]
+    for s, w in zip(stream_batches, want):
+        np.testing.assert_array_equal(w, lt.sharded_qmf_decode_batch(s, device="cpu"))
+    before = dict(tdec.PIXEL_COPY_COUNTS)
+    got, snapshots = _held_in_order(stream_batches, device, want)
+    for pixels, snap, w in zip(got, snapshots, want):
+        assert pixels.dtype == np.uint8 and pixels.shape == (2, 3, 48, 64) and pixels.flags.c_contiguous
+        assert torch.from_numpy(pixels).is_pinned()
+        np.testing.assert_array_equal(pixels, snap)
+        np.testing.assert_array_equal(pixels, w)
+    assert tdec.PIXEL_COPY_COUNTS["pinned"] - before["pinned"] == 3
+    assert tdec.PIXEL_COPY_COUNTS["host"] == before["host"]
+    assert 0 <= tdec.PIXEL_COPY_COUNTS["ready"] - before["ready"] <= 3
+
+
+@pytest.mark.cuda
+def test_pixel_copy_wait_releases_the_gil():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.full((2, 3, 8, 8), 7, dtype=torch.uint8, device="cuda")
+    torch.cuda._sleep(1_000_000_000)  # about half a second of the card's clock ahead of the copy
+    copy = tdec._PixelCopy(tuple(x.shape), x.dtype, [x.device])
+    copy.start(0, x)
+    assert not copy.ready()
+    stamps, stop = [], threading.Event()
+
+    def tick():
+        while not stop.is_set():
+            stamps.append(time.perf_counter())
+            time.sleep(0.001)
+
+    t = threading.Thread(target=tick)
+    t.start()
+    t0 = time.perf_counter()
+    pixels = copy.wait()
+    t1 = time.perf_counter()
+    stop.set()
+    t.join()
+    assert (pixels == 7).all() and t1 - t0 > 0.1
+    inside = [s for s in stamps if t0 <= s <= t1]
+    gaps = np.diff([t0] + inside + [t1])
+    assert gaps.max() < 0.05, gaps.max()  # the ticker ran all through the wait

@@ -14,7 +14,9 @@ On the CPU here:
 - a data mesh's rows record `lrf.mesh.row` under the batch, and their
   eighs are not mirrored (no profiler runs on a row's thread);
 - `lt.trace()` writes the worker threads' spans into its Chrome trace, on
-  its clock.
+  its clock;
+- each `lrf.decode.to_host` span carries the `pinned` and `ready`
+  attributes of its batch's pixel copy (on the card too).
 
 On the card (`cuda`: `python -m pytest --noconftest -m cuda
 tests/test_torch_tracing.py`): the same pipelines' spans on the card's
@@ -207,6 +209,25 @@ def test_snapshot_clear_and_bound():
         rec.keep(s)
     assert [s.name for s in rec.snapshot(clear=True)] == ["s2", "s3", "s4", "s5"]
     assert rec.snapshot(clear=False) == []
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_to_host_spans_carry_the_copy_attrs(traced, device):
+    spans = traced[3]
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        profiling.snapshot(clear=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            list(sharded_qmf_decode_batches(traced[1][:2], device="cuda"))  # the CPU's streams
+        profiling.follow_profiler()
+        spans = profiling.snapshot(clear=True)
+    to_host = [s for s in spans if s.name == "lrf.decode.to_host"]
+    assert len(to_host) == 2
+    for s in to_host:
+        assert set(s.attrs) == {"pinned", "ready"}, s
+        assert s.attrs["pinned"] is (device == "cuda") and isinstance(s.attrs["ready"], bool), s
+        assert s.attrs["ready"] or device == "cuda", s  # CPU pixels never wait
 
 
 @pytest.mark.cuda
