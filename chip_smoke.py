@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`lrf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--phases 3,5,6,7,8,9,10,11,12,13]
+    python3 chip_smoke.py [--seed N] [--phases 3,5,6,7,9,10,11,12,13]
 
 Phases, each of which raises (exit code != 0) when a check fails:
 
@@ -52,11 +52,13 @@ Phases, each of which raises (exit code != 0) when a check fails:
    encode launches `bcd_grid` once (RGB patches, RGB no-patch) or three
    times (YCbCr no-patch: Y, Cb, Cr) and no other kernel;
 6. the host tail at the same width: the native fiber coder's build and
-   backends; one encode with each transport (raw factors, the flat pack,
-   the entropy pack), whose streams must be byte-identical, with each
-   mode's encode, host and device times; the native serializer against the
-   plain pure-Python one on the same fetched factors (equal bytes under
-   the "zlib" coder); `deflate_fibers` on the same factors against the
+   backends; one encode through the encoder's one transport (the card's
+   DEFLATE, three launches, the "zlib9" spec), deterministic, with its
+   encode, device, fetch and framing times; the host serializer on the
+   same images' raw factors (an encoder built without a batch size keeps
+   them raw), which must give the card path's streams; the native
+   serializer against the plain pure-Python one on those factors (equal
+   bytes under the "zlib" coder); `deflate_fibers` on the same factors against the
    host's `assemble_streams` at zlib level 9 (equal streams; the kernel's
    device ms beside the host pool's wall ms); the synchronizing CUDA calls
    of one encode; then `sharded_qmf_encode_batches` over 8 batches, which
@@ -69,10 +71,7 @@ Phases, each of which raises (exit code != 0) when a check fails:
    PSNR - 0.3 dB; both inits' device ms (CUDA events) and host CPU ms, whole
    encode times, the device kernels each init launches (`torch.profiler`)
    and the synchronizing calls of a fast encode;
-8. the dpack decode transport: the bench streams with `transport="dpack"`
-   (the batch must take it) and `"flat"`, pixels equal to phase 4's decode;
-   upload bytes, `unpack_chunks_device`'s device ms, one-shot and 8-batch
-   pipelined decode rates of both, in turns;
+8. (no phase 8; the later phases keep their numbers);
 9. meshes and processes: a data mesh over every visible card (and over
    `cuda:0` twice on a one-card machine), each row dispatched from its own
    host thread: streams equal to the one device's (or all but 2, those
@@ -253,7 +252,7 @@ BCD_TIMED_MS = 1000.0
 # What each kernel replaces (the TPU kernels' pallas_call sites).
 REPLACES = "lrf_tpu/ops/bcd_pallas.py:519 (K1, K2), lrf_tpu/ops/bcd_pallas.py:722 (K3)"
 # Phases that --phases can leave out; 1 (card), 2 (build) and 4 (main path) always run.
-OPTIONAL_PHASES = (3, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+OPTIONAL_PHASES = (3, 5, 6, 7, 9, 10, 11, 12, 13)
 
 
 class CheckFailed(AssertionError):
@@ -829,11 +828,11 @@ def sync_sites(torch, fn) -> list[str]:
     return [f"{n} x {site}" for site, n in sites.items()]
 
 
-def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
-    """Phase 6: the transports, the native serializer against the plain one,
-    and the pipelined encode and decode over 8 batches."""
+def phase_host_tail(torch, lt, bk, seed: int, label: str) -> dict:
+    """Phase 6: the encoder's transport, the native serializer against the
+    plain one, and the pipelined encode and decode over 8 batches."""
     from lrf_tpu_torch.native import fibercodec as native
-    from lrf_tpu_torch.ops import deflate, entropy
+    from lrf_tpu_torch.ops import deflate
     from lrf_tpu_torch.parallel import decode as pdec
     from lrf_tpu_torch.parallel import encode as penc
 
@@ -845,51 +844,30 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     print(f"host tail [{label}]: fiber coder {coder}, native backends {native.backends()}, "
           f"{os.cpu_count()} host cores")
 
-    runs = {}
-    for mode in (None, "flat", "entropy"):
-        fn, metadata, spec = lt.build_sharded_encoder("cuda", (h, w), quality=10, batch=b, pack=mode)
-        if mode is None:
-            check(spec is not None and spec["mode"] == "zlib9", f"raw factors do not DEFLATE on the card: {spec}")
-        device_ms = cuda_ms(lambda: joined(torch, fn(x_dev)), 3)
-        deflate.KERNEL.counts["deflate"] = 0
-        streams = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", pack=mode)
-        want = 3 if mode is None else 0
-        check(deflate.KERNEL.counts["deflate"] == want,
-              f"pack={mode}: one encode launched the DEFLATE kernel {deflate.KERNEL.counts['deflate']} times, "
-              f"expected {want}")
-        enc_s, again = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", pack=mode))
-        check(again == streams, f"pack={mode}: encode is not deterministic")
-        out = fn(x_dev)
-        d2h = sum(t.numel() * t.element_size() for t in out)
-        fetch_s, host_out = best_s(lambda: penc._fetch_encoded(penc._start_fetch(out), spec), 1)
-        ser_s, again = best_s(lambda: penc._serialize_batch(host_out, spec, metadata, b))
-        check(again == streams, f"pack={mode}: serializing the fetched buffers gives other streams")
-        runs[mode] = dict(streams=streams, host_out=host_out, spec=spec, metadata=metadata)
-        extra = ""
-        if mode == "entropy":
-            seg_base = host_out[0]
-            n_values = sum(int(np.prod(s)) for s in spec["shapes"])
-            used_words = spec["n_seg_words"] + spec["main_words"] + int(seg_base[-1]) * entropy.ROW_WORDS
-            extra = (f"; {int(seg_base[-1])} of {spec['exc_budget']} continuation rows used, "
-                     f"{32 * used_words / n_values:.4f} bits/value used ({32 * d2h / 4 / n_values:.4f} fetched; "
-                     f"table's own {entropy.expected_bits_per_value():.4f}); ENTROPY_STATS {penc.ENTROPY_STATS}")
-        print(f"host tail [{label}] pack={mode}: encode {enc_s * 1e3:.2f} ms ({mpix / enc_s:.3f} Mpix/s); "
-              f"device part {device_ms:.3f} ms (CUDA events{', the side stream joined' if mode is None else ''}); fetch {fetch_s * 1e3:.3f} ms of {d2h} B; "
-              f"host part (native serializer, best of 3) {ser_s * 1e3:.3f} ms{extra}", flush=True)
-    raw = runs[None]["streams"]
-    for mode in ("flat", "entropy"):
-        check(runs[mode]["streams"] == raw, f"pack={mode} streams differ from the raw-factor streams")
-    flat = runs["flat"]["spec"]  # raw factors (pack None may DEFLATE on the card)
-    factors = penc._unpack_factors(runs["flat"]["host_out"], flat["shapes"], flat["dtype"], flat["lo"], flat["bits"])
-    decoded = penc._decode_entropy(runs["entropy"]["host_out"], runs["entropy"]["spec"])
-    check(all(np.array_equal(a, c) for a, c in zip(factors, decoded)), "entropy transport changed a factor value")
-    print(f"host tail [{label}]: raw, flat and entropy transports give byte-identical streams ({b} of {b})")
-    dev_factors = [torch.from_numpy(f).cuda() for f in factors]
-    flat_ms = cuda_ms(lambda: penc._pack_factors(dev_factors, -16, 5), 10)
-    budget = runs["entropy"]["spec"]["exc_budget"]
-    entropy_ms = cuda_ms(lambda: entropy.pack_segments(dev_factors, max_exc_rows=budget), 10)
-    print(f"host tail [{label}]: transport packs alone on the main path's factors (CUDA events, mean of 10): "
-          f"flat {flat_ms:.3f} ms, entropy {entropy_ms:.3f} ms")
+    fn, metadata, spec = lt.build_sharded_encoder("cuda", (h, w), quality=10, batch=b)
+    check(spec is not None and spec["mode"] == "zlib9", f"the encoder does not DEFLATE on the card: {spec}")
+    device_ms = cuda_ms(lambda: joined(torch, fn(x_dev)), 3)
+    deflate.KERNEL.counts["deflate"] = 0
+    streams = lt.sharded_qmf_encode_batch(images, quality=10, device="cuda")
+    check(deflate.KERNEL.counts["deflate"] == 3,
+          f"one encode launched the DEFLATE kernel {deflate.KERNEL.counts['deflate']} times, expected 3")
+    enc_s, again = best_s(lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda"))
+    check(again == streams, "encode is not deterministic")
+    out = fn(x_dev)
+    d2h = sum(t.numel() * t.element_size() for t in out)
+    fetch_s, host_out = best_s(lambda: penc._fetch_encoded(penc._start_fetch(out), spec), 1)
+    ser_s, again = best_s(lambda: penc._serialize_batch(host_out, spec, metadata, b))
+    check(again == streams, "framing the fetched card streams gives other streams")
+    print(f"host tail [{label}]: encode {enc_s * 1e3:.2f} ms ({mpix / enc_s:.3f} Mpix/s); device part "
+          f"{device_ms:.3f} ms (CUDA events, the side stream joined); fetch {fetch_s * 1e3:.3f} ms of {d2h} B; "
+          f"host part (framing, best of 3) {ser_s * 1e3:.3f} ms", flush=True)
+    # Raw factors: without a batch size the encoder does not DEFLATE on the card.
+    raw_fn = lt.build_sharded_encoder("cuda", (h, w), quality=10)[0]
+    dev_factors = list(raw_fn(x_dev))
+    factors = [f.cpu().numpy() for f in dev_factors]
+    host_streams = penc._serialize_batch(factors, None, metadata, b)
+    check(host_streams == streams, "the host serializer on the raw factors gives other streams than the card path")
+    print(f"host tail [{label}]: the host serializer on the raw factors gives the card path's streams ({b} of {b})")
 
     # The DEFLATE kernel on the same factors against the host's zlib-9 pool
     ms, rs = [f.shape[1] for f in factors], [f.shape[2] for f in factors]
@@ -898,7 +876,7 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     card = native.frame_streams(slots.cpu().numpy(), lens.cpu().numpy(), b, rs, deflate.slot_caps(ms), b"{}", inner)
     pool_s, host = best_s(lambda: native.assemble_streams(factors, b, ms, rs, b"{}", inner, 9, "zlib"))
     check(card == host, "deflate_fibers' streams differ from the host's zlib level 9")
-    check(card == native.frame_streams(*runs[None]["host_out"], b, rs, deflate.slot_caps(ms), b"{}", inner),
+    check(card == native.frame_streams(*host_out, b, rs, deflate.slot_caps(ms), b"{}", inner),
           "the encoder's card streams differ from deflate_fibers' on the same factors")
     deflate_ms = cuda_ms(lambda: deflate.deflate_fibers(dev_factors), 10)
     lib, global_rank, rank_ints = deflate.KERNEL.lib(), ctypes.c_int(0), 0
@@ -914,7 +892,6 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     deflate_run = dict(ms=deflate_ms, plain_ms=pool_s * 1e3, bound_ms=bound_ms,
                        shapes=[list(f.shape) for f in factors])
 
-    metadata = runs[None]["metadata"]
     lt.set_fiber_coder("zlib")
     try:
         native_s, native_zlib = best_s(lambda: penc._serialize_batch(factors, None, metadata, b))
@@ -925,7 +902,7 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
     print(f"host tail [{label}]: host part on the same fetched factors: native serializer ('zlib') "
           f"{native_s * 1e3:.3f} ms, pure-Python serializer {plain_s * 1e3:.3f} ms "
           f"({plain_s / native_s:.2f}x), bytes identical; default coder {coder} streams "
-          f"{'equal' if raw == native_zlib else 'differ from'} the zlib streams")
+          f"{'equal' if streams == native_zlib else 'differ from'} the zlib streams")
     for line in sync_sites(torch, lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda")):
         print(f"host tail: sync in one raw encode: {line}")
     # How much of the init's eigh is host work: CPU seconds of this process
@@ -972,7 +949,7 @@ def phase_host_tail(torch, lt, bk, seed: int, label: str) -> None:
           f"{(n - n // 2) * mpix / (pipe_s - half_s):.3f} Mpix/s; one-shot decodes {n * mpix / one_s:.3f} Mpix/s "
           f"({one_s * 1e3:.1f} ms); host stage (parse, native inflate and {pack[1]}-bit pack) "
           f"{inflate_s * 1e3:.3f} ms per batch; pixels equal")
-    return one_shot, deflate_run
+    return deflate_run
 
 
 def device_kernels(torch, fn) -> list[str]:
@@ -1052,58 +1029,6 @@ def phase_fast_init(torch, lt, bk, seed: int, label: str, exact_streams, exact_d
             print(f"fast init [{label}] init={mode}: kernel {n} x {name[:110]}")
     for line in sync_sites(torch, lambda: lt.sharded_qmf_encode_batch(images, quality=10, device="cuda", init="fast")):
         print(f"fast init: sync in one fast encode: {line}")
-
-
-def phase_dpack(torch, lt, seed: int, label: str, streams, dec, batches) -> None:
-    """Phase 8: the dpack decode transport against the flat one."""
-    from lrf_tpu_torch.ops import entropy
-    from lrf_tpu_torch.parallel import decode as pdec
-
-    b = len(streams)
-    _, _, h, w = dec.shape
-    mpix = b * h * w / 1e6
-    for k in pdec.TRANSPORT_COUNTS:
-        pdec.TRANSPORT_COUNTS[k] = 0
-    got = lt.sharded_qmf_decode_batch(streams, device="cuda", transport="dpack")
-    counts = dict(pdec.TRANSPORT_COUNTS)
-    print(f"dpack [{label}]: the bench batch took {counts}")
-    check(counts == {"dpack": 1, "flat": 0, "unpacked": 0}, f"the bench batch did not take dpack: {counts}")
-    check(np.array_equal(got, dec), "dpack decode differs from the one-shot decode")
-    check(np.array_equal(lt.sharded_qmf_decode_batch(streams, device="cuda"), dec), "flat decode differs")
-
-    sizes = {}
-    for transport in ("flat", "dpack"):
-        upload, _, shapes, _, pack = pdec._inflate_streams(streams, True, transport)
-        sizes[transport] = upload.nbytes
-    shapes3 = [(b, m, r) for m, r in shapes]
-    c_total = entropy.segment_layout(shapes3)[2][-1]
-    words = torch.from_numpy(upload.view(np.int32)).cuda()
-    rows_words = -(-c_total // 4)
-    main_end = rows_words + c_total * entropy.MAIN_WORDS
-    rows_u8 = ((words[:rows_words, None] >> torch.arange(0, 32, 8, device="cuda")) & 0xFF).reshape(-1)[:c_total]
-    unpack_ms = cuda_ms(lambda: entropy.unpack_chunks_device(rows_u8, words[rows_words:main_end], words[main_end:],
-                                                             shapes3), 5)
-    n_values = sum(m * r for m, r in shapes) * b
-    print(f"dpack [{label}]: upload {sizes['dpack']} B ({8 * sizes['dpack'] / n_values:.4f} bits/value, {pack[2]} "
-          f"continuation rows) against flat {sizes['flat']} B ({8 * sizes['flat'] / n_values:.4f}); "
-          f"unpack_chunks_device {unpack_ms:.3f} ms on the device for {c_total} chunks (CUDA events, mean of 5)")
-    n = len(batches)
-    for k in pdec.TRANSPORT_COUNTS:
-        pdec.TRANSPORT_COUNTS[k] = 0
-    for transport in ("flat", "dpack", "dpack", "flat"):
-        one_s, _ = best_s(lambda: lt.sharded_qmf_decode_batch(streams, device="cuda", transport=transport))
-        inflate_s, _ = best_s(lambda: pdec._inflate_streams(streams, True, transport))
-        pipe_s, outs = best_s(lambda: list(lt.sharded_qmf_decode_batches(batches, device="cuda", transport=transport)), 1)
-        check(len(outs) == n, "pipelined decode lost a batch")
-        print(f"dpack [{label}] transport={transport}: one-shot decode {mpix / one_s:.3f} Mpix/s ({one_s * 1e3:.2f} ms, "
-              f"host stage {inflate_s * 1e3:.3f} ms); pipelined decode of {n} batches {n * mpix / pipe_s:.3f} Mpix/s "
-              f"({pipe_s * 1e3:.1f} ms)", flush=True)
-    counts = dict(pdec.TRANSPORT_COUNTS)
-    print(f"dpack [{label}]: batches per transport over the timed decodes: {counts}")
-    check(counts["unpacked"] == 0 and counts["dpack"] == counts["flat"], f"a timed batch left its transport: {counts}")
-    check(all(np.array_equal(a, c) for a, c in zip(outs, lt.sharded_qmf_decode_batches(batches, device="cuda",
-                                                                                       transport="dpack"))),
-          "pipelined dpack decode differs from the pipelined flat decode")
 
 
 def _equal_or_close(images, got, want, what: str) -> int:
@@ -2973,15 +2898,11 @@ def main() -> int:
         phase_variants(torch, lt, bk, args.seed)
         lap(5)
     if 6 in phases:
-        batches, deflate_run = phase_host_tail(torch, lt, bk, args.seed, label)
+        deflate_run = phase_host_tail(torch, lt, bk, args.seed, label)
         lap(6)
     if 7 in phases:
         phase_fast_init(torch, lt, bk, args.seed, label, main_run["streams"], main_run["dec"])
         lap(7)
-    if 8 in phases:
-        phase_dpack(torch, lt, args.seed, label, main_run["streams"], main_run["dec"],
-                    batches if 6 in phases else [main_run["streams"]])
-        lap(8)
     if 9 in phases:
         phase_mesh(torch, lt, bk, args.seed, label, main_run["streams"])
         lap(9)

@@ -31,12 +31,7 @@ from lrf_tpu_torch.parallel.distributed import (
     process_index,
     shard_range,
 )
-from lrf_tpu_torch.parallel.encode import (
-    EntropyOverflowError,
-    build_sharded_encoder,
-    sharded_qmf_encode_batch,
-    sharded_qmf_encode_batches,
-)
+from lrf_tpu_torch.parallel.encode import build_sharded_encoder, sharded_qmf_encode_batch, sharded_qmf_encode_batches
 from lrf_tpu_torch.parallel.mesh import Mesh, make_mesh
 from lrf_tpu_torch.utils import *  # noqa: F401,F403
 
@@ -51,7 +46,6 @@ __all__ = list(dict.fromkeys([
     "sharded_qmf_decode_batch",
     "sharded_qmf_decode_batches",
     "build_sharded_encoder",
-    "EntropyOverflowError",
     "Mesh",
     "make_mesh",
     "initialize",

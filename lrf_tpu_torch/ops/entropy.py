@@ -182,9 +182,7 @@ def segment_ranks(shapes):
 
 def default_exc_rows(c_total: int) -> int:
     """Continuation-row budget for `c_total` chunks: 4.5 rows per chunk plus
-    64. The whole budget is fetched every batch; the encoder adapts it to
-    observed usage (`parallel/encode._observe_entropy_rows`), and a batch
-    that exceeds it is re-encoded with the flat pack."""
+    64 (the JAX package's default)."""
     return 4 * c_total + (c_total >> 1) + 64
 
 

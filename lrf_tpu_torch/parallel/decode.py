@@ -2,29 +2,20 @@
 
 Port of `lrf_tpu/parallel/decode.py`. The host parses every stream and
 inflates all fibers natively (`lrf_decompress_fibers`), then packs the
-factor values for the upload in one of two transports:
+factor values for the upload with `lrf_pack_values`: `30 // bits` values
+per word, one `(B, words)` buffer, unpacked with shifts and masks on the
+device. Each batch decides for itself: a batch with a value outside the
+bounds (`num_iters=0` streams hold unprojected factors), or whose factors
+the native pass cannot take, uploads its values unpacked. Pixels are the
+same either way; `TRANSPORT_COUNTS` counts which upload each batch took.
+The entry points' `transport=` takes only `"flat"`, this upload.
 
-- `"flat"` (default): `lrf_pack_values`, `30 // bits` values per word,
-  one `(B, words)` buffer, unpacked with shifts and masks on the device;
-- `"dpack"`: delta + static Huffman (`lrf_dpack_encode`, the host mirror of
-  the encoder's entropy pack), one flat buffer `[per-chunk row counts as
-  bytes | main | used continuation rows]`, decoded on the device by
-  `ops/entropy.py::unpack_chunks_device`. Only when one device decodes (its
-  chunk stream interleaves the images, so it has no batch axis to split),
-  and never for a batch whose rows overflow the budget or whose deltas
-  leave the code's alphabet (`num_iters=0` streams): those take the flat
-  pack, or the unpacked upload when a value is outside the bounds. Pixels
-  are the same whatever the transport; `TRANSPORT_COUNTS` counts which one
-  each batch took.
-
-The JAX package picks the transport with `LRF_TPU_DECODE_TRANSPORT`; here
-it is the `transport=` keyword. The reconstruction (U V^T per channel,
-depatchify, unpad, nearest chroma upsample, YCbCr -> RGB, clamp-cast) runs
-batched; on a mesh the batch is split over the data rows, each row
-dispatched from a host thread of its own (`Mesh.map_rows`: the YCbCr
-offset and the nearest upsample's indices are pageable uploads, which wait
-on the row's device), and every device of a row
-does the row's work (JAX's `P("data")` replicates it over the patch axis).
+The reconstruction (U V^T per channel, depatchify, unpad, nearest chroma
+upsample, YCbCr -> RGB, clamp-cast) runs batched; on a mesh the batch is
+split over the data rows, each row dispatched from a host thread of its own
+(`Mesh.map_rows`: the YCbCr offset and the nearest upsample's indices are
+pageable uploads, which wait on the row's device), and every device of a
+row does the row's work (JAX's `P("data")` replicates it over the patch axis).
 Per-image results equal `lrf_tpu_torch.qmf_decode`'s.
 
 Pixels to the host: on a card each data row's pixels go, on the stream
@@ -45,7 +36,7 @@ enqueued batch i. Under a profiler both entry points record the
 
 from __future__ import annotations
 
-import json
+import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
@@ -54,32 +45,21 @@ import torch
 
 from lrf_tpu_torch.models.container import bytes_to_dict, decode_matrix_batch, separate_bytes
 from lrf_tpu_torch.native import fibercodec as _native
-from lrf_tpu_torch.ops import entropy as _entropy
 from lrf_tpu_torch.ops.color import ycbcr_to_rgb
 from lrf_tpu_torch.ops.pad import unpad_image
 from lrf_tpu_torch.ops.patch import depatchify
 from lrf_tpu_torch.ops.quantize import torch_dtype, to_dtype
 from lrf_tpu_torch.ops.resample import chroma_upsample
-from lrf_tpu_torch.parallel.encode import _pack_params
 from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
 from lrf_tpu_torch.utils import profiling
 
 __all__ = ["PIXEL_COPY_COUNTS", "TRANSPORT_COUNTS", "sharded_qmf_decode_batch", "sharded_qmf_decode_batches"]
 
-_TRANSPORTS = ("flat", "dpack")
+_TRANSPORTS = ("flat",)
 
-# Per-config (metadata signature) bit-pack decisions: the first batch of a
-# config decides whether its uploads are packed; see _inflate_streams.
-_PACK_DECISIONS: dict = {}
-# Per-config sticky dpack upload bucket: the most rows (in whole buckets) a
-# batch of this config has needed, so the upload's size stays put across
-# batches; rows past a batch's own are never read.
-_DPACK_BUCKETS: dict = {}
-_DPACK_BUCKET_ROWS = 4096
-
-# Batches decoded per upload transport: "dpack", "flat" (bit-packed) or
-# "unpacked" (a value outside the bounds, or a non-int8 factor).
-TRANSPORT_COUNTS = {"dpack": 0, "flat": 0, "unpacked": 0}
+# Batches decoded per upload: "flat" (bit-packed) or "unpacked" (a value
+# outside the bounds, or a factor the pack does not take).
+TRANSPORT_COUNTS = {"flat": 0, "unpacked": 0}
 # Batches' pixels to the host: "pinned" (an asynchronous copy into a
 # page-locked block), "host" (CPU pixels taken as they are), and "ready":
 # pinned batches whose copy had ended when the calling thread came to wait
@@ -94,17 +74,23 @@ def _check_args(out: str, transport: str) -> None:
         raise ValueError(f"unknown transport {transport!r}; one of {_TRANSPORTS}")
 
 
+def _pack_params(bounds) -> tuple[int, int]:
+    """(lo, bits) for bit-packing factors projected to [ceil(lo), floor(hi)]."""
+    lo = math.ceil(bounds[0])
+    levels = math.floor(bounds[1]) - lo + 1
+    return lo, max(1, math.ceil(math.log2(levels)))
+
+
 def _inflate_streams(streams, single_device: bool = False, transport: str = "flat"):
     """Host stage: parse containers, inflate all fibers, pack the upload.
 
     Touches no torch state, so it runs on a worker thread beside device
     work. Returns `(flat, metadata, shapes, in_dtype, pack)`: the upload
     buffer, the shared metadata, the per-factor `(M, R)` shapes and the
-    factors' dtype name. `pack` says what the buffer is: `("dpack", B,
-    rows)` for the 1-D dpack upload, `(lo, bits, total)` for the `(B,
-    words)` bit-packed one, None for the `(B, total)` factor values.
-    `single_device` gates the dpack upload; it defaults to False, so a
-    caller that does not derive it from its mesh never gets dpack there.
+    factors' dtype name. `pack` says what the buffer is: `(lo, bits,
+    total)` for the `(B, words)` bit-packed upload, None for the `(B,
+    total)` factor values. `single_device` and `transport` choose nothing;
+    the benchmark's stage timer (`portbench/stages.py`) passes them.
     """
     if len(streams) == 0:
         raise ValueError("no streams to decode")
@@ -125,7 +111,7 @@ def _inflate_streams(streams, single_device: bool = False, transport: str = "fla
             for k, blob in enumerate(separate_bytes(encoded_factors, 6)):
                 per_factor[k].append(blob)
     b = len(streams)
-    fast = _inflate_pack_native(per_factor, metadata, b, single_device and transport == "dpack")
+    fast = _inflate_pack_native(per_factor, metadata, b)
     if fast is not None:
         return fast
 
@@ -134,16 +120,11 @@ def _inflate_streams(streams, single_device: bool = False, transport: str = "fla
     shapes = tuple(f.shape[1:] for f in factors)
     # Pack the upload when the factors fit their advertised bounds (always
     # for >= 1 BCD sweep; num_iters=0 streams hold unprojected SVD factors).
-    # The first batch of a config decides, so a config keeps one upload
-    # layout; every batch is still scanned, and one that breaks a cached
-    # pack decision uploads unpacked.
     bounds = metadata.get("bounds")
     if bounds is not None and flat.dtype.kind == "i":
         lo, bits = _pack_params(bounds)
         hi = lo + (1 << bits) - 1
-        in_bounds = bool(flat.min() >= lo and flat.max() <= hi)
-        decision = _PACK_DECISIONS.setdefault(json.dumps(metadata, sort_keys=True), bits < 8 and in_bounds)
-        if decision and in_bounds:
+        if bits < 8 and flat.min() >= lo and flat.max() <= hi:
             total = flat.shape[1]
             vals_per_word = 30 // bits
             padded = -(-total // vals_per_word) * vals_per_word
@@ -156,37 +137,13 @@ def _inflate_streams(streams, single_device: bool = False, transport: str = "fla
     return flat, metadata, shapes, flat.dtype.name, None
 
 
-def _dpack_upload(raws, b: int, ms, rs, config_key: str):
-    """The dpack upload of fiber-major int8 factors, or None when the rows
-    overflow the budget or a delta leaves the alphabet. Only the used rows
-    travel, rounded up to the config's sticky bucket."""
-    c_total = sum(b * (-(-m * r // _entropy.CHUNK)) for m, r in zip(ms, rs))
-    budget = _entropy.default_exc_rows(c_total)
-    out = _native.dpack_encode(
-        raws, b, ms, rs, _entropy.LENS, _entropy.CODES, _entropy.CHUNK, _entropy.MAIN_WORDS, _entropy.ROW_WORDS,
-        budget,
-    )
-    if out is None:
-        return None
-    main, exc, chunk_rows, n_rows = out
-    rows_u8 = np.zeros(-(-c_total // 4) * 4, np.uint8)
-    rows_u8[:c_total] = chunk_rows
-    needed = -(-max(n_rows, 1) // _DPACK_BUCKET_ROWS) * _DPACK_BUCKET_ROWS
-    sticky = max(needed, _DPACK_BUCKETS.get(config_key, 0))
-    _DPACK_BUCKETS[config_key] = sticky
-    upload_rows = min(budget, sticky)
-    upload = np.concatenate([rows_u8.view(np.uint32), main, exc[: upload_rows * _entropy.ROW_WORDS]])
-    return upload, ("dpack", b, upload_rows)
-
-
-def _inflate_pack_native(per_factor, metadata, b: int, dpack: bool):
+def _inflate_pack_native(per_factor, metadata, b: int):
     """Fused native inflate + pack of int8 column-fiber factors.
 
     Inflates each factor's fibers to its raw fiber-major buffer, then packs
-    them straight into the upload: dpack when asked and it fits, else
-    `lrf_pack_values`' `(B, words)`. Returns `_inflate_streams`' tuple, or
-    None for the numpy route: no bounds, 8 or more bits, a non-int8 or
-    row-fiber factor, a cached unpacked decision, or a value outside the
+    them straight into `lrf_pack_values`' `(B, words)` upload. Returns
+    `_inflate_streams`' tuple, or None for the numpy route: no bounds, 8 or
+    more bits, a non-int8 or row-fiber factor, or a value outside the
     bounds (the native pass doubles as that check).
     """
     bounds = metadata.get("bounds")
@@ -194,9 +151,6 @@ def _inflate_pack_native(per_factor, metadata, b: int, dpack: bool):
         return None
     lo, bits = _pack_params(bounds)
     if bits >= 8:
-        return None
-    config_key = json.dumps(metadata, sort_keys=True)
-    if _PACK_DECISIONS.get(config_key) is False:
         return None
     raws = []
     shapes = []
@@ -211,31 +165,14 @@ def _inflate_pack_native(per_factor, metadata, b: int, dpack: bool):
         raw = _native.decompress_fibers_raw(fibers, np.int8)  # (B * R, M) fiber-major
         raws.append(raw)
         shapes.append((raw.shape[1], r))
-    ms, rs = [m for m, _ in shapes], [r for _, r in shapes]
-    if dpack:
-        up = _dpack_upload(raws, b, ms, rs, config_key)
-        if up is not None:
-            _PACK_DECISIONS.setdefault(config_key, True)
-            return up[0], metadata, tuple(shapes), "int8", up[1]
-    packed = _native.pack_values(raws, b, ms, rs, lo, bits)
-    if packed is None:  # a value outside the bounds: unpacked upload
-        _PACK_DECISIONS.setdefault(config_key, False)
+    packed = _native.pack_values(raws, b, [m for m, _ in shapes], [r for _, r in shapes], lo, bits)
+    if packed is None:  # a value outside the bounds: the numpy route uploads unpacked
         return None
-    _PACK_DECISIONS.setdefault(config_key, True)
     return packed, metadata, tuple(shapes), "int8", (lo, bits, sum(m * r for m, r in shapes))
 
 
 def _unpack(flat: torch.Tensor, shapes, in_dtype: str, pack) -> list[torch.Tensor]:
     """The upload buffer on the device -> the six float32 factors."""
-    if pack is not None and pack[0] == "dpack":
-        b = pack[1]
-        shapes3 = [(b, m, r) for m, r in shapes]
-        c_total = _entropy.segment_layout(shapes3)[2][-1]
-        rows_words = -(-c_total // 4)
-        rows_u8 = ((flat[:rows_words, None] >> torch.arange(0, 32, 8, device=flat.device)) & 0xFF).reshape(-1)
-        main_end = rows_words + c_total * _entropy.MAIN_WORDS
-        values = _entropy.unpack_chunks_device(rows_u8[:c_total], flat[rows_words:main_end], flat[main_end:], shapes3)
-        return [v.to(torch.float32) for v in values]
     if pack is not None:
         lo, bits, total = pack
         vals_per_word = 30 // bits
@@ -253,9 +190,9 @@ def _unpack(flat: torch.Tensor, shapes, in_dtype: str, pack) -> list[torch.Tenso
 def _reconstruct(flat: torch.Tensor, metadata, shapes, in_dtype: str = "int8", pack=None) -> torch.Tensor:
     """Upload buffer on the device -> `(B, 3, H, W)` images.
 
-    `flat` is what `_inflate_streams` returned, on the device: the dpack or
-    `(B, words)` bit-packed words as int32 (dpack words hold uint32 bit
-    patterns; flat ones stay below 2^30), or the `(B, total)` values.
+    `flat` is what `_inflate_streams` returned, on the device: the `(B,
+    words)` bit-packed words as int32 (they stay below 2^30), or the `(B,
+    total)` values.
     """
     factors = _unpack(flat, shapes, in_dtype, pack)
     orig_sizes = [tuple(s) for s in metadata["original size"]]
@@ -324,24 +261,17 @@ class _Started(NamedTuple):
 def _device_start(flat: np.ndarray, metadata, shapes, in_dtype, pack, mesh: Mesh, out: str) -> _Started:
     """Enqueue a batch's upload and reconstruction and, for ``out="host"``,
     start its pixels' copy to the host."""
-    if pack is None:
-        kind = "unpacked"
-    else:
-        kind = "dpack" if pack[0] == "dpack" else "flat"
+    if pack is not None:
         flat = flat.view(np.int32)
-    TRANSPORT_COUNTS[kind] += 1
+    TRANSPORT_COUNTS["unpacked" if pack is None else "flat"] += 1
     device_span = profiling.begin("lrf.decode.device")
     with profiling.within(device_span):
         with profiling.span("lrf.decode.upload", bytes_in=flat.nbytes):
-            host = torch.from_numpy(flat)
-            # dpack: one device by construction (_inflate_streams' gate)
-            parts = [host.to(mesh.first)] if kind == "dpack" else mesh.split_batch(host)
-        rows = [(mesh.first,)] if kind == "dpack" else mesh.devices
+            parts = mesh.split_batch(torch.from_numpy(flat))
         copy = None
         if out == "host":
-            b = pack[1] if kind == "dpack" else flat.shape[0]
-            shape = (b, 3, *metadata["original size"][0])
-            copy = _PixelCopy(shape, torch_dtype(metadata["dtype"]), [row[0] for row in rows])
+            shape = (flat.shape[0], 3, *metadata["original size"][0])
+            copy = _PixelCopy(shape, torch_dtype(metadata["dtype"]), [row[0] for row in mesh.devices])
         with profiling.span("lrf.decode.reconstruct"):
 
             def decode_row(indexed, devices):
@@ -351,10 +281,7 @@ def _device_start(flat: np.ndarray, metadata, shapes, in_dtype, pack, mesh: Mesh
                     copy.start(i, pixels)
                 return pixels
 
-            if kind == "dpack":
-                parts = [decode_row((0, parts[0]), rows[0])]
-            else:
-                parts = mesh.map_rows(decode_row, list(enumerate(parts)))
+            parts = mesh.map_rows(decode_row, list(enumerate(parts)))
     if copy is not None:
         return _Started(device_span, copy)
     return _Started(device_span, parts[0] if len(parts) == 1 else torch.cat([p.to(mesh.first) for p in parts]))
@@ -396,8 +323,8 @@ def sharded_qmf_decode_batch(streams, device="cuda", out: str = "host", transpor
     Returns a `(B, 3, H, W)` array of the original dtype: numpy when
     ``out="host"`` (on a card, a view of a page-locked host block, copied
     into and waited for at once), the tensor on the mesh's first device
-    when ``out="device"``. `transport`: the upload, `"flat"` (default) or
-    `"dpack"` (one device only; see the module docstring).
+    when ``out="device"``. `transport`: `"flat"` only, the one upload (see
+    the module docstring); the benchmark harness (`portbench/`) passes it.
     """
     _check_args(out, transport)
     mesh = as_mesh(device)
@@ -405,16 +332,16 @@ def sharded_qmf_decode_batch(streams, device="cuda", out: str = "host", transpor
     root = profiling.begin("lrf.decode.batch", batch=0)
     try:
         with profiling.within(root):
-            return _device_decode(*_inflate_spanned(streams, mesh.size == 1, transport, root), mesh, out)
+            return _device_decode(*_inflate_spanned(streams, root), mesh, out)
     finally:
         profiling.end(root)
 
 
-def _inflate_spanned(streams, single_device: bool, transport: str, parent=None):
+def _inflate_spanned(streams, parent=None):
     """`_inflate_streams` under the `lrf.decode.inflate` span; `parent` is
     the batch's span (of the thread that submitted it)."""
     with profiling.span("lrf.decode.inflate", parent=parent, bytes_in=sum(len(x) for x in streams)) as s:
-        staged = _inflate_streams(streams, single_device, transport)
+        staged = _inflate_streams(streams)
         if s is not None:
             s.bytes_out = staged[0].nbytes
     return staged
@@ -467,7 +394,7 @@ def sharded_qmf_decode_batches(stream_batches, device="cuda", out: str = "host",
         for seq, streams in enumerate(stream_batches):
             profiling.follow_profiler()
             root = profiling.begin("lrf.decode.batch", batch=seq)
-            fut = pool.submit(_inflate_spanned, streams, mesh.size == 1, transport, root)
+            fut = pool.submit(_inflate_spanned, streams, root)
             if inflating is not None:
                 yield from advance(inflating)
             inflating = (fut, root)

@@ -25,17 +25,15 @@ and factorized by the plain sweeps with their sums over M taken across the
 shards (`ops/bcd.py::sharded_bcd`); the fused kernel cannot reduce across
 shards inside its loop.
 
-The int8 factors, gathered on the mesh's first device, leave it raw
-(`pack=None`, the default), 5-bit packed (`"flat"`), or delta+Huffman
-packed (`"entropy"`, `ops/entropy.py`), as one buffer copied to pinned host
-memory. The host tail (`_serialize_batch`) turns them into finished streams
-in one native call (`native/fibercodec.cpp`: entropy decode, per-fiber
-DEFLATE and framing). All modes give the same bytes. On a card with raw
-int8 factors and a coder that gives zlib-9 bytes ("zlib" at level 9, or
-"best" in a native build without libdeflate, as on a host without it), the
-fibers are DEFLATEd on the card instead (`ops/deflate.py`, the same bytes):
-the fetch carries the streams and their lengths, and the host only frames
-them.
+The int8 factors, gathered on the mesh's first device, take one transport
+to the host. On a card with int8 factors of a known batch and a coder that
+gives zlib-9 bytes ("zlib" at level 9, or "best" in a native build without
+libdeflate, as on a host without it), their fibers are DEFLATEd on the card
+(`ops/deflate.py`): the fetch carries the streams and their lengths to
+pinned host memory, and the host only frames them. Otherwise the raw
+factors are fetched and the host tail (`_serialize_batch`) turns them into
+finished streams in one native call (`native/fibercodec.cpp`: per-fiber
+DEFLATE and framing). Both give the same bytes.
 `sharded_qmf_encode_batches` pipelines many batches: device work and copies
 stay on the calling thread while two workers serialize earlier batches.
 Under a profiler both entry points record the `lrf.encode.*` spans of
@@ -45,8 +43,6 @@ Under a profiler both entry points record the `lrf.encode.*` spans of
 from __future__ import annotations
 
 import contextlib
-import logging
-import math
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -65,7 +61,6 @@ from lrf_tpu_torch.models.container import (
 from lrf_tpu_torch.models.qmf import _channel_ranks, _padded_size
 from lrf_tpu_torch.native import fibercodec as _native
 from lrf_tpu_torch.ops import deflate as _deflate
-from lrf_tpu_torch.ops import entropy as _entropy
 from lrf_tpu_torch.ops.bcd import sharded_bcd, sharded_svd_init, svd_init, svd_init_shared
 from lrf_tpu_torch.ops.bcd_kernel import bcd, bcd_reference
 from lrf_tpu_torch.ops.color import rgb_to_ycbcr
@@ -78,7 +73,6 @@ from lrf_tpu_torch.utils import profiling
 from lrf_tpu_torch.utils.transfer import HostCopy
 
 __all__ = [
-    "EntropyOverflowError",
     "build_sharded_encoder",
     "sharded_qmf_encode_batch",
     "sharded_qmf_encode_batches",
@@ -90,114 +84,6 @@ __all__ = [
 # "torch": the plain PyTorch sweeps on any device (`bcd_reference`).
 _BACKENDS = ("auto", "kernel", "torch")
 _INITS = ("svd", "fast")
-
-_logger = logging.getLogger("lrf_tpu_torch.parallel")
-
-
-class EntropyOverflowError(Exception):
-    """The entropy pack's continuation-row budget was exceeded for a batch
-    (data far from the static code's distribution); callers re-encode that
-    batch with the flat pack."""
-
-    def __init__(self, n_ovf: int, budget: int):
-        self.n_ovf = n_ovf
-        self.budget = budget
-        super().__init__(
-            f"{n_ovf} continuation rows exceed the {budget}-row budget; falling back to flat packing for this batch"
-        )
-
-
-# Entropy-transport health counters.
-ENTROPY_STATS = {"batches": 0, "fallbacks": 0, "max_rows": 0, "budget_bumps": 0, "budget_shrinks": 0}
-
-# Adaptive continuation-row budgets, keyed by the factor-shape tuple. The
-# whole budget is copied to the host every batch, so it follows observed
-# usage both ways: grown on an overflow or a batch within 5% of it, shrunk
-# to a rolling p99 once enough batches were seen. A bump clears the
-# history, so the next shrink needs _SHRINK_MIN_OBS fresh batches.
-_EXC_ROWS_HINT: dict = {}
-_EXC_ROWS_OBS: dict = {}  # shapes-key -> deque of recent observed row counts
-_SHRINK_MIN_OBS = 8  # observations before the first shrink
-_SHRINK_MARGIN = 1.08  # budget = p99 * margin + 256, rounded up to 1 KiRow
-
-
-def _observe_entropy_rows(pack_spec, n_rows: int, overflowed: bool) -> None:
-    """Update transport stats and the adaptive budget after a batch fetch."""
-    ENTROPY_STATS["batches"] += 1
-    ENTROPY_STATS["max_rows"] = max(ENTROPY_STATS["max_rows"], n_rows)
-    budget = pack_spec["exc_budget"]
-    key = pack_spec["shapes"]
-    hist = _EXC_ROWS_OBS.setdefault(key, deque(maxlen=64))
-    hist.append(n_rows)
-    if overflowed:
-        ENTROPY_STATS["fallbacks"] += 1
-        want = n_rows + (n_rows >> 2) + 64
-    elif n_rows * 20 > budget * 19:  # within 5% of the budget
-        want = budget + (budget >> 2)
-    else:
-        want = None
-    if want is not None:
-        if want > _EXC_ROWS_HINT.get(key, 0):
-            _EXC_ROWS_HINT[key] = want
-            ENTROPY_STATS["budget_bumps"] += 1
-            hist.clear()
-            _logger.warning(
-                "entropy transport %s: %d continuation rows vs budget %d; next build uses %d (fallbacks so far: %d)",
-                "overflow" if overflowed else "near-budget", n_rows, budget, want, ENTROPY_STATS["fallbacks"],
-            )
-        return
-    # Shrink toward observed usage, quantized up to 1024 rows so jitter does
-    # not churn it, and only when it saves >= 10%. The target also clears
-    # the near-budget trigger for every observed batch, so a shrink never
-    # hands the next batch straight back to a bump.
-    if len(hist) >= _SHRINK_MIN_OBS:
-        arr = np.asarray(hist)
-        p99 = float(np.quantile(arr, 0.99))
-        target = max(int(p99 * _SHRINK_MARGIN) + 256, int(int(arr.max()) / 0.95) + 1)
-        target = -(-target // 1024) * 1024
-        if target * 10 <= budget * 9 and _EXC_ROWS_HINT.get(key) != target:
-            _EXC_ROWS_HINT[key] = target
-            ENTROPY_STATS["budget_shrinks"] += 1
-            _logger.info(
-                "entropy transport: shrinking continuation-row budget %d -> %d (p99 of %d observed batches: %.0f rows)",
-                budget, target, len(hist), p99,
-            )
-
-
-def _pack_params(bounds) -> tuple[int, int]:
-    """(lo, bits) for bit-packing factors projected to [ceil(lo), floor(hi)]."""
-    lo = math.ceil(bounds[0])
-    levels = math.floor(bounds[1]) - lo + 1
-    return lo, max(1, math.ceil(math.log2(levels)))
-
-
-def _pack_factors(factors, lo: int, bits: int) -> torch.Tensor:
-    """Bit-pack integer factors into one flat buffer on their device:
-    `30 // bits` values per word (value - lo shifted by bits * slot), as
-    int32 (words stay below 2^30)."""
-    vals_per_word = 30 // bits
-    flat = torch.cat([f.reshape(-1).to(torch.int64) - lo for f in factors])
-    total = flat.numel()
-    n_words = -(-total // vals_per_word)
-    flat = torch.nn.functional.pad(flat, (0, n_words * vals_per_word - total))
-    shifts = torch.arange(vals_per_word, dtype=torch.int64, device=flat.device) * bits
-    return (flat.reshape(n_words, vals_per_word) << shifts).sum(dim=1).to(torch.int32)
-
-
-def _unpack_factors(packed: np.ndarray, shapes, dtype, lo: int, bits: int):
-    """Host inverse of `_pack_factors` on the fetched words."""
-    vals_per_word = 30 // bits
-    mask = (1 << bits) - 1
-    shifts = np.arange(vals_per_word, dtype=np.uint32) * bits
-    vals = (packed[:, None] >> shifts[None, :]) & mask
-    vals = vals.reshape(-1).astype(np.int32) + lo
-    out = []
-    offset = 0
-    for shape in shapes:
-        n = int(np.prod(shape))
-        out.append(vals[offset : offset + n].reshape(shape).astype(dtype))
-        offset += n
-    return out
 
 
 class _Deflated(tuple):
@@ -225,10 +111,10 @@ def _card_deflate(device: torch.device, dtype, batch, ms) -> bool:
         return max(ms) <= _deflate.KERNEL.max_fiber()
 
 
-def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, backend, pack, exc_rows, init):
+def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, backend, on_card, init):
     """The batched encode function for one config: `(B, 3, H, W)` -> the 6
-    factors on the mesh's first device, a 1-tuple holding the packed
-    transport buffer, or (pack "zlib9") the card's DEFLATE output."""
+    factors on the mesh's first device, or (`on_card`) the card's DEFLATE
+    output."""
     run_bcd = bcd_reference if backend == "torch" else bcd
     method = "randomized" if init == "fast" else "gram"
 
@@ -283,12 +169,7 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
                 parts = mesh.split_batch(images)
         rows = mesh.map_rows(encode_row, parts)
         factors = rows[0] if len(rows) == 1 else [torch.cat([r[k].to(mesh.first) for r in rows]) for k in range(6)]
-        if pack == "entropy":
-            seg_base, main, exc = _entropy.pack_segments(factors, max_exc_rows=exc_rows)
-            return (torch.cat([seg_base, main, exc]),)
-        if pack == "flat":
-            return (_pack_factors(factors, *_pack_params(bounds)),)
-        if pack == "zlib9":
+        if on_card:
             side = _deflate.side_stream(mesh.first)
             side.wait_stream(torch.cuda.current_stream(mesh.first))
             with torch.cuda.stream(side), profiling.span("lrf.encode.deflate",
@@ -324,25 +205,21 @@ def build_sharded_encoder(
     Returns `(encode_fn, metadata, pack_spec)`: `encode_fn(images)` maps a
     `(B, 3, H, W)` tensor (on the device; on a mesh with several data rows,
     anywhere) to the 6 per-channel factor tensors `(B, ., R)` on the mesh's
-    first device, or, when a pack mode is active, to a 1-tuple holding the
-    packed int32 transport buffer, or, where the card DEFLATEs the fibers
-    (raw int8 factors of a known `batch` on a card, under a coder that gives
-    zlib-9 bytes: `_card_deflate`), to their zlib streams in fixed slots and
-    their lengths, made on the device's side stream: fetch them with
+    first device, or, where the card DEFLATEs the fibers (int8 factors of a
+    known `batch` on a card, under a coder that gives zlib-9 bytes:
+    `_card_deflate`), to their zlib streams in fixed slots and their
+    lengths, made on the device's side stream: fetch them with
     `_start_fetch`, which copies on that stream, or after synchronizing the
     device; `metadata` is the stream metadata every image shares;
-    `pack_spec` (None for raw factors) is what the host needs to reverse
-    the pack, or to frame the card's streams (mode "zlib9"). On a mesh B
-    must divide evenly over the data rows.
+    `pack_spec` is None for raw factors, or what the host needs to frame the
+    card's streams (mode "zlib9"). On a mesh B must divide evenly over the
+    data rows.
 
-    `pack`: None/False/"" keeps raw factors; "flat" (or True) packs them
-    `30 // bits` values per word; "entropy" packs them delta+Huffman
-    (`ops/entropy.py`), which needs `batch`, `num_iters >= 1`, int8 and the
-    canonical (-16, 15) bounds. Packing needs `batch` (factor shapes carry
-    it); without it the factors stay raw. All modes give the same streams.
-    `backend`: "auto" (the BCD kernel on a GPU; the plain sweeps across
-    shards when the mesh's patch axis is > 1), "kernel" (the BCD kernel
-    always; refused under patch sharding) or "torch" (plain sweeps).
+    `pack`: None, False or "" only; the benchmark harness
+    (`portbench/harness.py`) passes it. `backend`: "auto" (the BCD kernel
+    on a GPU; the plain sweeps across shards when the mesh's patch axis is
+    > 1), "kernel" (the BCD kernel always; refused under patch sharding)
+    or "torch" (plain sweeps).
     `init`: "svd" (default; the exact shared-eigh init) or "fast" (the
     randomized range-finder per stack; other, near-equal bytes).
     """
@@ -374,44 +251,23 @@ def build_sharded_encoder(
         "padded size": padded_sizes,
         "rank": list(ranks),
     }
-    lo, bits = _pack_params(bounds)
-    if pack is True:
-        pack = "flat"
-    pack = pack or ""
-    if pack not in ("", "flat", "entropy"):
-        raise ValueError(f"unknown pack {pack!r}; one of None, 'flat', 'entropy'")
-    entropy_ok = batch is not None and num_iters >= 1 and (lo, bits) == (-16, 5) and np.dtype(dtype) == np.int8
-    if pack == "entropy" and not entropy_ok:
-        raise ValueError("pack='entropy' needs batch, num_iters >= 1, int8 and the canonical (-16, 15) bounds")
-    if batch is None:
-        pack = ""
-
+    if pack not in (None, False, ""):
+        raise ValueError(
+            f"unknown pack {pack!r}: the encoder has one transport, raw factors DEFLATEd on the card where it can, "
+            "whose streams the former 'flat' and 'entropy' packs only ever equalled; pass None"
+        )
     pack_spec = None
-    exc_budget = None
     p, q = patch_size
     shapes = []
     for padded, r in zip(padded_sizes, ranks):
         shapes.append((batch, (padded[0] // p) * (padded[1] // q), r))  # u
         shapes.append((batch, p * q, r))  # v
     shapes = tuple(shapes)
-    if not pack and _card_deflate(mesh.first, dtype, batch, [s[1] for s in shapes]):
-        pack = "zlib9"
-        pack_spec = {"mode": pack, "shapes": shapes, "caps": tuple(_deflate.slot_caps([s[1] for s in shapes]))}
-    elif pack:
-        pack_spec = {"mode": pack, "shapes": shapes, "lo": lo, "bits": bits, "dtype": np.dtype(dtype)}
-        if pack == "entropy":
-            values, _, bounds_idx = _entropy.segment_layout(shapes)
-            c_total = bounds_idx[-1]
-            exc_budget = _EXC_ROWS_HINT.get(shapes) or _entropy.default_exc_rows(c_total)
-            pack_spec.update(
-                values_per_segment=tuple(values),
-                n_seg_words=len(values) + 1,
-                main_words=c_total * _entropy.MAIN_WORDS,
-                exc_budget=exc_budget,
-            )
+    if _card_deflate(mesh.first, dtype, batch, [s[1] for s in shapes]):
+        pack_spec = {"mode": "zlib9", "shapes": shapes, "caps": tuple(_deflate.slot_caps([s[1] for s in shapes]))}
     fn = _encoder(
-        mesh, ranks, tuple(scale_factor), patch_size, tuple(bounds), num_iters, torch_dtype(dtype), backend, pack,
-        exc_budget, init,
+        mesh, ranks, tuple(scale_factor), patch_size, tuple(bounds), num_iters, torch_dtype(dtype), backend,
+        pack_spec is not None, init,
     )
     return fn, metadata, pack_spec
 
@@ -440,50 +296,15 @@ def _start_fetch(out) -> HostCopy:
 
 
 def _fetch_encoded(copy: HostCopy, pack_spec):
-    """Wait for a fetch and lay it out for `_serialize_batch`: the 6 factor
-    arrays (raw), the packed words (flat), `(seg_base, main, exc)` with
-    only the used continuation rows (entropy), or the card's `(slots,
-    lens)` (zlib9). Raises EntropyOverflowError when the entropy pack ran
-    out of rows."""
+    """Wait for a fetch and return what `_serialize_batch` takes: the 6
+    factor arrays, or the card's `(slots, lens)`. `pack_spec` chooses
+    nothing; the benchmark's stage timer (`portbench/stages.py`) passes it."""
     with profiling.span("lrf.encode.fetch_wait", mirror=True):
         host = copy.wait()
-    if pack_spec is None:
-        return host
-    if pack_spec["mode"] == "zlib9":
-        span = getattr(copy, "deflate_span", None)
-        if span is not None:
-            span.bytes_out = int(host[1].sum(dtype=np.int64))
-        return host
-    flat = host[0].view(np.uint32)
-    if pack_spec["mode"] != "entropy":
-        return flat
-    n_seg = pack_spec["n_seg_words"]
-    seg_base = flat[:n_seg].astype(np.int32)
-    n_rows = int(seg_base[-1])
-    overflowed = n_rows > pack_spec["exc_budget"]
-    _observe_entropy_rows(pack_spec, n_rows, overflowed)
-    if overflowed:
-        raise EntropyOverflowError(n_rows, pack_spec["exc_budget"])
-    main_end = n_seg + pack_spec["main_words"]
-    return seg_base, flat[n_seg:main_end], flat[main_end : main_end + n_rows * _entropy.ROW_WORDS]
-
-
-def _decode_entropy(host_out, pack_spec):
-    """The fetched `(seg_base, main, exc)` entropy buffers -> the int8
-    factor arrays (native decoder)."""
-    seg_base, main, exc = host_out
-    shapes = pack_spec["shapes"]
-    flat = _native.dpack_decode_segments(
-        main, exc, seg_base, pack_spec["values_per_segment"], _entropy.segment_ranks(shapes), _entropy.LENS,
-        _entropy.CODES, _entropy.CHUNK, _entropy.MAIN_WORDS, _entropy.ROW_WORDS,
-    )
-    factors = []
-    offset = 0
-    for shape in shapes:
-        n = int(np.prod(shape))
-        factors.append(flat[offset : offset + n].reshape(shape).astype(pack_spec["dtype"]))
-        offset += n
-    return factors
+    span = getattr(copy, "deflate_span", None)  # the card's DEFLATE, when it ran
+    if span is not None:
+        span.bytes_out = int(host[1].sum(dtype=np.int64))
+    return host
 
 
 def _inner_metadata(rs) -> list[bytes]:
@@ -494,28 +315,18 @@ def _serialize_batch(host_out, pack_spec, metadata, b: int) -> list[bytes]:
     """Host tail of batch encoding: fetched buffers -> per-image streams.
 
     Takes numpy buffers only, never tensors, so it runs on a worker thread
-    beside device work on the calling thread. Int8 factors, whatever the
-    transport, take one native call that does the whole stream assembly
-    (entropy decode, per-fiber DEFLATE with the process-wide coder, inner
-    metadata, framing); the card's zlib streams take one that frames them;
-    other dtypes go through the container per factor.
+    beside device work on the calling thread. The card's zlib streams take
+    one native call that frames them; raw int8 factors one that does the
+    whole stream assembly (per-fiber DEFLATE with the process-wide coder,
+    inner metadata, framing); other dtypes go through the container per
+    factor.
     """
     backend, level = get_fiber_coder()
     encoded_metadata = dict_to_bytes(metadata)
-    if pack_spec is not None and pack_spec["mode"] == "zlib9":
+    if pack_spec is not None:
         slots, lens = host_out
         rs = [s[2] for s in pack_spec["shapes"]]
         return _native.frame_streams(slots, lens, b, rs, pack_spec["caps"], encoded_metadata, _inner_metadata(rs))
-    if pack_spec is not None and pack_spec["mode"] == "entropy":
-        seg_base, main, exc = host_out
-        rs = [s[2] for s in pack_spec["shapes"]]
-        return _native.dpack_assemble_streams(
-            main, exc, seg_base.astype(np.int64), b, [s[1] for s in pack_spec["shapes"]], rs, _entropy.LENS,
-            _entropy.CODES, _entropy.CHUNK, _entropy.MAIN_WORDS, _entropy.ROW_WORDS, encoded_metadata,
-            _inner_metadata(rs), level, backend,
-        )
-    if pack_spec is not None:
-        host_out = _unpack_factors(host_out, pack_spec["shapes"], pack_spec["dtype"], pack_spec["lo"], pack_spec["bits"])
     if all(f.dtype == np.int8 and f.ndim == 3 for f in host_out):
         rs = [f.shape[2] for f in host_out]
         return _native.assemble_streams(
@@ -533,8 +344,7 @@ def _serialize_spanned(host_out, pack_spec, metadata, b: int, parent=None, submi
     in a worker pool's queue; `parent` is the submitting batch's span."""
     if submitted_ns is not None:
         profiling.record("lrf.encode.serializer_queue", submitted_ns, parent=parent)
-    nbytes = sum(a.nbytes for a in host_out) if isinstance(host_out, (list, tuple)) else host_out.nbytes
-    with profiling.span("lrf.encode.serialize", parent=parent, bytes_in=nbytes) as s:
+    with profiling.span("lrf.encode.serialize", parent=parent, bytes_in=sum(a.nbytes for a in host_out)) as s:
         streams = _serialize_batch(host_out, pack_spec, metadata, b)
         if s is not None:
             s.bytes_out = sum(len(x) for x in streams)
@@ -562,12 +372,11 @@ def sharded_qmf_encode_batch(
     On the CPU the streams are byte-identical to per-image
     `lrf_tpu_torch.qmf_encode`. On a GPU the BCD kernel sums in another
     order than the plain sweeps, so a small share of factor entries can
-    differ at round() ties; every stream decodes with either package. A
-    batch that overflows the entropy pack's row budget is re-encoded with
-    the flat pack (same bytes). `device` may be a `Mesh`: on the CPU a data
-    mesh gives the one device's bytes, and a patch-sharded one near-equal
-    streams (the sums over M are split). The arguments are in the JAX
-    package's order, `(images, mesh, quality, rank, **config)`.
+    differ at round() ties; every stream decodes with either package.
+    `device` may be a `Mesh`: on the CPU a data mesh gives the one
+    device's bytes, and a patch-sharded one near-equal streams (the sums
+    over M are split). The arguments are in the JAX package's order,
+    `(images, mesh, quality, rank, **config)`.
     """
     mesh = as_mesh(device)
     profiling.follow_profiler()
@@ -578,11 +387,7 @@ def sharded_qmf_encode_batch(
             b = int(images.shape[0])
             size = (int(images.shape[-2]), int(images.shape[-1]))
             fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
-            try:
-                host_out = _fetch_encoded(_start_fetch(fn(images)), pack_spec)
-            except EntropyOverflowError:
-                return sharded_qmf_encode_batch(images, device=mesh, quality=quality, rank=rank,
-                                                **{**config, "pack": "flat"})
+            host_out = _fetch_encoded(_start_fetch(fn(images)), pack_spec)
             return _serialize_spanned(host_out, pack_spec, metadata, b)
     finally:
         profiling.end(root)
@@ -606,30 +411,22 @@ def sharded_qmf_encode_batches(
     touch only numpy and the native library, never torch. The one
     exception to keeping torch calls on the calling thread is a mesh with
     several data rows: the encoder dispatches each row from a thread of its
-    own (`Mesh.map_rows`) and joins them before it returns. A batch that
-    overflows the entropy row budget is re-encoded with the flat pack.
-    Streams equal `sharded_qmf_encode_batch`'s. The arguments are in the
-    JAX package's order: `(batches, mesh, quality, rank, depth)`.
+    own (`Mesh.map_rows`) and joins them before it returns. Streams equal
+    `sharded_qmf_encode_batch`'s. The arguments are in the JAX package's
+    order: `(batches, mesh, quality, rank, depth)`.
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
     mesh = as_mesh(device)
     profiling.follow_profiler()
     with ThreadPoolExecutor(max_workers=2) as pool:
-        in_flight = deque()  # (copy, pack_spec, metadata, b, images, root span)
+        in_flight = deque()  # (copy, pack_spec, metadata, b, root span)
         pending = deque()  # (future of list[bytes], root span), in batch order
 
         def drain_one():
-            copy, pack_spec, metadata, b, images, root = in_flight.popleft()
+            copy, pack_spec, metadata, b, root = in_flight.popleft()
             with profiling.within(root):
-                try:
-                    host_out = _fetch_encoded(copy, pack_spec)
-                except EntropyOverflowError:
-                    size = (int(images.shape[-2]), int(images.shape[-1]))
-                    fn, metadata, pack_spec = build_sharded_encoder(
-                        mesh, size, quality=quality, rank=rank, batch=b, **{**config, "pack": "flat"}
-                    )
-                    host_out = _fetch_encoded(_start_fetch(fn(images)), pack_spec)
+                host_out = _fetch_encoded(copy, pack_spec)
             fut = pool.submit(_serialize_spanned, host_out, pack_spec, metadata, b, root, time.perf_counter_ns())
             profiling.end(root)
             pending.append((fut, root))
@@ -650,7 +447,7 @@ def sharded_qmf_encode_batches(
                 fn, metadata, pack_spec = build_sharded_encoder(
                     mesh, size, quality=quality, rank=rank, batch=b, **config
                 )
-                in_flight.append((_start_fetch(fn(images)), pack_spec, metadata, b, images, root))
+                in_flight.append((_start_fetch(fn(images)), pack_spec, metadata, b, root))
             if len(in_flight) > depth:
                 drain_one()
             while len(pending) > 2:

@@ -24,8 +24,8 @@ On the CPU here:
 On the card (`cuda`): the kernel's streams equal zlib's on the same corpus;
 `sharded_qmf_encode_batches` on Kodak-size and CLIC-size batches gives the
 host path's streams, with the launches counted and `lrf.encode.deflate`
-recorded; "flat", "entropy", the "deflate" coder, the CPU and fibers
-over the bound launch nothing; and the kernel asks for a global rank
+recorded; the "deflate" coder, the CPU and fibers over the bound launch
+nothing; and the kernel asks for a global rank
 scratch only where shared memory cannot hold the ranks.
 """
 
@@ -238,7 +238,7 @@ def _card_batches(size, b: int, n: int):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("size,b", [(KODAK, 8), (CLIC, 2)])
-def test_pipeline_streams_equal_the_host_paths(size, b):
+def test_pipeline_streams_equal_the_host_paths(monkeypatch, size, b):
     _need_card()
     from torch.profiler import ProfilerActivity, profile
 
@@ -246,7 +246,9 @@ def test_pipeline_streams_equal_the_host_paths(size, b):
 
     batches = _card_batches(size, b, 3)
     with _coder("zlib"):
-        host = list(penc.sharded_qmf_encode_batches(batches, device="cuda", quality=10, pack="flat"))
+        with monkeypatch.context() as m:  # the host path: raw factors to the host's zlib-9
+            m.setattr(penc, "_card_deflate", lambda *args: False)
+            host = list(penc.sharded_qmf_encode_batches(batches, device="cuda", quality=10))
         before = deflate.KERNEL.launches
         profiling.snapshot(clear=True)
         with profile(activities=[ProfilerActivity.CPU]):
@@ -262,14 +264,12 @@ def test_pipeline_streams_equal_the_host_paths(size, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["flat", "entropy", "deflate-coder", "cpu", "over-bound"])
+@pytest.mark.parametrize("case", ["deflate-coder", "cpu", "over-bound"])
 def test_routes_off_the_card_launch_nothing(monkeypatch, case):
     _need_card()
     images = _card_batches(KODAK, 4, 1)[0]
-    kw, device, coder = {}, "cuda", ("zlib", None)
-    if case in ("flat", "entropy"):
-        kw["pack"] = case
-    elif case == "deflate-coder":
+    device, coder = "cuda", ("zlib", None)
+    if case == "deflate-coder":
         coder = ("deflate", None)
     elif case == "cpu":
         device = "cpu"
@@ -278,10 +278,10 @@ def test_routes_off_the_card_launch_nothing(monkeypatch, case):
         monkeypatch.setattr(deflate.KERNEL, "_max_fiber", 6143)  # Y's U has 6144 rows
     before = deflate.KERNEL.launches
     with _coder(*coder):
-        streams = lt.sharded_qmf_encode_batch(images, device=device, quality=10, **kw)
-        _, _, spec = penc.build_sharded_encoder(device, KODAK, quality=10, batch=4, **kw)
+        streams = lt.sharded_qmf_encode_batch(images, device=device, quality=10)
+        _, _, spec = penc.build_sharded_encoder(device, KODAK, quality=10, batch=4)
     assert deflate.KERNEL.launches == before
-    assert spec is None or spec["mode"] != "zlib9"
+    assert spec is None
     assert len(streams) == 4
     if case == "over-bound":
         with pytest.raises(ValueError, match="exceed"):

@@ -1,12 +1,14 @@
 """The port's batched codec host tail against the JAX package's.
 
-- Transports: raw factors, the flat pack and the entropy pack give
-  byte-identical streams, equal to per-image `qmf_encode` on the CPU.
-- `_serialize_batch` on the same fetched buffers gives the JAX package's
-  streams, for each transport and each fiber coder, and the plain
-  pure-Python serializer's under "zlib".
+- The one transport: the batch's streams equal per-image `qmf_encode` on
+  the CPU, and the fetched raw factors serialize to them; any other pack
+  or decode upload is refused.
+- `_serialize_batch` on the fetched factors gives the streams that the JAX
+  package's host tail gives from its own raw, flat and entropy buffers of
+  the same factors, under each fiber coder, and the plain pure-Python
+  serializer's under "zlib".
 - The pipelined encoder gives the one-shot streams, in order, across image
-  sizes, including when a batch overflows the entropy row budget.
+  sizes, at depths 1 and 2.
 - The batched encoders take the JAX package's argument order.
 - Batched decode takes the packed upload and equals per-image decode; so
   does the pipelined decode; the JAX package decodes the port's streams to
@@ -35,7 +37,6 @@ from PIL import Image
 import lrf_tpu_torch as lt
 from lrf_tpu_torch.models import container as tc
 from lrf_tpu_torch.native import fibercodec as tnative
-from lrf_tpu_torch.ops import entropy as tentropy
 from lrf_tpu_torch.parallel import decode as tdec
 from lrf_tpu_torch.parallel import encode as tenc
 from lrf_tpu_torch.parallel.mesh import make_mesh
@@ -66,37 +67,64 @@ def coders():
     tc.set_fiber_coder(*saved[1])
 
 
-def _host_buffers(images, pack):
-    """Fetched host buffers of one CPU encode with `pack`, and its spec."""
+def _host_buffers(images):
+    """Fetched host buffers of one CPU encode (the raw factors), its spec
+    and its metadata."""
     b = images.shape[0]
-    fn, metadata, spec = tenc.build_sharded_encoder("cpu", images.shape[-2:], batch=b, pack=pack, **KW)
+    fn, metadata, spec = tenc.build_sharded_encoder("cpu", images.shape[-2:], batch=b, **KW)
     return tenc._fetch_encoded(HostCopy(fn(torch.from_numpy(images))), spec), spec, metadata
 
 
 def test_transports_give_identical_streams(batch):
+    # One transport: the batch's streams are per-image `qmf_encode`'s, and
+    # the fetched raw factors serialize to them.
     raw = lt.sharded_qmf_encode_batch(batch, device="cpu", **KW)
     assert raw == [lt.qmf_encode(img, device="cpu", **KW) for img in batch]
-    for pack in ("flat", True, "entropy"):
-        assert lt.sharded_qmf_encode_batch(batch, device="cpu", pack=pack, **KW) == raw, pack
-    host, spec, _ = _host_buffers(batch, "entropy")
-    assert int(host[0][-1]) <= spec["exc_budget"]  # this batch fits the default budget
-    raw_factors, _, _ = _host_buffers(batch, None)
-    for got, want in zip(tenc._decode_entropy(host, spec), raw_factors):
-        np.testing.assert_array_equal(got, want)
-    flat, flat_spec, _ = _host_buffers(batch, "flat")
-    assert flat.dtype == np.uint32 and flat_spec["bits"] == 5
-    for got, want in zip(tenc._unpack_factors(flat, flat_spec["shapes"], np.int8, -16, 5), raw_factors):
-        np.testing.assert_array_equal(got, want)
+    host, spec, metadata = _host_buffers(batch)
+    assert spec is None and [f.dtype for f in host] == [np.int8] * 6
+    assert tenc._serialize_batch(host, spec, metadata, batch.shape[0]) == raw
+    assert lt.sharded_qmf_encode_batch(batch, device="cpu", pack=None, **KW) == raw  # the benchmark's keyword
+
+
+@pytest.fixture(scope="module")
+def jax_buffers(batch):
+    """`jax_buffers(pack)`: the JAX package's fetched host buffers of its
+    `pack` transport (None, "flat" or "entropy") for the port's raw factors
+    of `batch`, made by its own packers, with its pack spec and metadata."""
+    import jax
+    import jax.numpy as jnp
+    from lrf_tpu.ops.entropy import pack_segments
+    from lrf_tpu.parallel import encode as jenc
+    from lrf_tpu.parallel.mesh import make_mesh
+
+    host, _, _ = _host_buffers(batch)
+    mesh = make_mesh(data=1, patch=1, devices=jax.devices()[:1])
+    made = {}
+
+    def buffers(pack):
+        if pack not in made:
+            _, metadata, spec = jenc.build_sharded_encoder(
+                mesh, batch.shape[-2:], batch=batch.shape[0], pack=pack or False, **KW
+            )
+            factors = [jnp.asarray(f) for f in host]
+            if pack == "flat":
+                factors = jenc._pack_factors(factors, spec["lo"], spec["bits"])
+            elif pack == "entropy":
+                seg_base, main, exc = pack_segments(factors, max_exc_rows=spec["exc_budget"])
+                factors = (jnp.concatenate([seg_base.astype(jnp.uint32), main, exc]),)
+            made[pack] = jenc._fetch_encoded(factors, spec), spec, metadata
+        return made[pack]
+
+    return buffers
 
 
 @pytest.mark.parametrize("coder", ["zlib", "best", "deflate"])
-@pytest.mark.parametrize("pack", [None, "flat", "entropy"])
-def test_serialize_batch_matches_jax(batch, coders, pack, coder):
-    # Same fetched buffers through both packages' host tails: same streams.
-    import jax
+@pytest.mark.parametrize("jax_pack", [None, "flat", "entropy"])
+def test_serialize_batch_matches_jax(batch, coders, jax_buffers, jax_pack, coder):
+    # The port's one transport against each of the JAX package's: the same
+    # factors through both host tails give the same streams.
     from lrf_tpu.native import fibercodec as jnative
     from lrf_tpu.parallel import encode as jenc
-    from lrf_tpu.parallel.mesh import make_mesh
 
     if not jnative.available():
         pytest.skip("the JAX package's native fiber coder does not load here")
@@ -104,37 +132,46 @@ def test_serialize_batch_matches_jax(batch, coders, pack, coder):
         pytest.skip("the port's native coder was built without libdeflate")
     jc = coders
     b = batch.shape[0]
-    host, spec, metadata = _host_buffers(batch, pack)
-    _, j_metadata, j_spec = jenc.build_sharded_encoder(
-        make_mesh(data=1, patch=1, devices=jax.devices()[:1]), batch.shape[-2:], batch=b, pack=pack or False, **KW
-    )
+    host, spec, metadata = _host_buffers(batch)
+    j_host, j_spec, j_metadata = jax_buffers(jax_pack)
     assert j_metadata == metadata
     jc.set_fiber_coder(coder)
     tc.set_fiber_coder(coder)
     got = tenc._serialize_batch(host, spec, metadata, b)
-    assert got == jenc._serialize_batch(host, j_spec, j_metadata, b)
+    assert got == jenc._serialize_batch(j_host, j_spec, j_metadata, b)
     if coder == "zlib":
-        raw, _, _ = _host_buffers(batch, None)
-        assert got == tenc._serialize_plain(raw, metadata, b)
+        assert got == tenc._serialize_plain(host, metadata, b)
 
 
-def test_entropy_rejects_non_canonical(batch):
-    with pytest.raises(ValueError):
-        lt.sharded_qmf_encode_batch(batch, quality=20, num_iters=1, bounds=(-8, 7), pack="entropy", device="cpu")
-    with pytest.raises(ValueError):
-        lt.sharded_qmf_encode_batch(batch, quality=20, num_iters=0, pack="entropy", device="cpu")
-    with pytest.raises(ValueError):
-        lt.sharded_qmf_encode_batch(batch, pack="lz4", device="cpu", **KW)
-    # without a batch size the factors stay raw
-    assert lt.build_sharded_encoder("cpu", (48, 64), pack="flat", **KW)[2] is None
+@pytest.mark.parametrize(
+    "kw", [{"pack": "flat"}, {"pack": True}, {"pack": "entropy"}, {"transport": "dpack"}],
+    ids=["pack=flat", "pack=True", "pack=entropy", "transport=dpack"],
+)
+def test_other_transports_are_refused(batch, kw):
+    # One transport each way: any other pack or decode upload raises, as an
+    # unknown one always did.
+    if "pack" in kw:
+        for call in (lambda **k: lt.sharded_qmf_encode_batch(batch, device="cpu", **k, **KW),
+                     lambda **k: lt.build_sharded_encoder("cpu", (48, 64), **k, **KW)):  # without a batch too
+            with pytest.raises(ValueError, match="one transport"):
+                call(**kw)
+            with pytest.raises(ValueError, match="lz4"):
+                call(pack="lz4")
+    else:
+        streams = lt.sharded_qmf_encode_batch(batch, device="cpu", **KW)
+        for transport in (kw["transport"], "huffman"):
+            with pytest.raises(ValueError, match="transport"):
+                lt.sharded_qmf_decode_batch(streams, device="cpu", transport=transport)
+            with pytest.raises(ValueError, match="transport"):
+                next(lt.sharded_qmf_decode_batches([streams], device="cpu", transport=transport))
 
 
-@pytest.mark.parametrize("pack", [None, "entropy"])
-def test_pipelined_encode_matches_one_shot(batch, pack):
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pipelined_encode_matches_one_shot(batch, depth):
     small = np.ascontiguousarray(batch[:3, :, :32, :40])
     batches = [batch, small, batch[::-1].copy(), small]
-    want = [lt.sharded_qmf_encode_batch(x, device="cpu", pack=pack, **KW) for x in batches]
-    got = list(lt.sharded_qmf_encode_batches(batches, device="cpu", pack=pack, depth=2, **KW))
+    want = [lt.sharded_qmf_encode_batch(x, device="cpu", **KW) for x in batches]
+    got = list(lt.sharded_qmf_encode_batches(batches, device="cpu", depth=depth, **KW))
     assert got == want
     assert list(lt.sharded_qmf_encode_batches([], device="cpu", **KW)) == []
     with pytest.raises(ValueError):
@@ -151,30 +188,6 @@ def test_jax_style_positional_arguments(batch):
     got = list(lt.sharded_qmf_encode_batches(halves, "cpu", 20, None, 1, num_iters=3))
     assert got == [want[:2], want[2:]]
     assert got == list(lt.sharded_qmf_encode_batches(halves, device="cpu", quality=20, depth=1, num_iters=3))
-
-
-def test_pipelined_overflow_fallback(batch, monkeypatch):
-    # A tiny row budget makes the first entropy-packed batches overflow: they
-    # come back flat-packed with the same bytes, in order, and the budget
-    # grows so that batches built after the first overflow was observed
-    # (beyond the in-flight depth) stay on the entropy transport.
-    b4 = batch[:4]
-    want = lt.sharded_qmf_encode_batch(b4, device="cpu", **KW)
-    monkeypatch.setattr(tentropy, "default_exc_rows", lambda c_total: 8)
-    monkeypatch.setattr(tenc, "_EXC_ROWS_HINT", {})
-    monkeypatch.setattr(tenc, "_EXC_ROWS_OBS", {})
-    monkeypatch.setattr(tenc, "ENTROPY_STATS", dict.fromkeys(tenc.ENTROPY_STATS, 0))
-    got = []
-    for streams in lt.sharded_qmf_encode_batches([b4] * 5, device="cpu", pack="entropy", depth=2, **KW):
-        got.extend(streams)
-    assert got == want * 5
-    stats = tenc.ENTROPY_STATS
-    assert stats["fallbacks"] >= 1 and stats["budget_bumps"] >= 1
-    assert stats["batches"] == 5 and stats["fallbacks"] <= 3
-    # the one-shot entry point falls back the same way
-    monkeypatch.setattr(tenc, "_EXC_ROWS_HINT", {})
-    assert lt.sharded_qmf_encode_batch(b4, device="cpu", pack="entropy", **KW) == want
-    assert stats["fallbacks"] == 4
 
 
 def test_batched_decode_takes_the_packed_upload(batch):
@@ -261,7 +274,7 @@ def test_native_serializer_threads_give_same_streams(batch):
     # pipeline does); each must give the single-threaded bytes.
     from concurrent.futures import ThreadPoolExecutor
 
-    host, spec, metadata = _host_buffers(batch, "entropy")
+    host, spec, metadata = _host_buffers(batch)
     want = tenc._serialize_batch(host, spec, metadata, batch.shape[0])
     with ThreadPoolExecutor(max_workers=4) as pool:
         futs = [pool.submit(tenc._serialize_batch, host, spec, metadata, batch.shape[0]) for _ in range(8)]
@@ -275,10 +288,9 @@ def test_pipelined_encode_on_gpu_matches_one_shot():
     rng = np.random.default_rng(4)
     base = _photos(4, 96, 128)
     batches = [base, np.clip(base.astype(np.int16) + rng.integers(-3, 4, base.shape), 0, 255).astype(np.uint8)]
-    for pack in (None, "flat", "entropy"):
-        want = [lt.sharded_qmf_encode_batch(x, quality=10, pack=pack) for x in batches]
-        assert list(lt.sharded_qmf_encode_batches(batches, quality=10, pack=pack)) == want
-        assert want[0] == lt.sharded_qmf_encode_batch(batches[0], quality=10)
+    want = [lt.sharded_qmf_encode_batch(x, quality=10) for x in batches]
+    for depth in (1, 3):
+        assert list(lt.sharded_qmf_encode_batches(batches, quality=10, depth=depth)) == want
     dec = [lt.sharded_qmf_decode_batch(s) for s in want]
     for got, d in zip(lt.sharded_qmf_decode_batches(want), dec):
         np.testing.assert_array_equal(got, d)
