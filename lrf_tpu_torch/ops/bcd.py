@@ -35,6 +35,7 @@ from lrf_tpu_torch.ops.svd import (
     left_factor,
     pad_rank,
     rounded_sqrt,
+    shared_svd_from_eigh,
     shared_top_pairs,
     shared_truncated_svd,
     svd_balanced_factors,
@@ -79,8 +80,17 @@ def svd_init_shared(stacks, ranks, num_levels=None, bounds=(None, None), method=
     Returns a list of `(u, v, w)` triples, each equal to that stack's own
     `svd_init`.
     """
-    r_effs = [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)]
-    triplets = shared_truncated_svd(stacks, r_effs, method=method)
+    return _balanced_inits(stacks, ranks, shared_truncated_svd(stacks, ranks, method=method), num_levels, bounds)
+
+
+def svd_init_from_eigh(stacks, ranks, evals, evecs, num_levels=None, bounds=(None, None)):
+    """`svd_init_shared` from the ascending eigendecomposition of the
+    stacks' `shared_gram`, taken by the caller: the encode pipeline fetches
+    one batch's Grams while the host runs the previous batch's eigh."""
+    return _balanced_inits(stacks, ranks, shared_svd_from_eigh(stacks, ranks, evals, evecs), num_levels, bounds)
+
+
+def _balanced_inits(stacks, ranks, triplets, num_levels, bounds):
     out = []
     for x, rank, (u, s, v) in zip(stacks, ranks, triplets):
         rs = rounded_sqrt(s)

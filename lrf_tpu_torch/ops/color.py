@@ -52,7 +52,13 @@ def _mix(m, x: torch.Tensor) -> torch.Tensor:
 
 
 def _offset(x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(_YCBCR_OFFSET, dtype=torch.float32, device=x.device).reshape(3, 1, 1)
+    """The `(3, 1, 1)` float32 offset on x's device, filled there: a host
+    tensor sent to a card without `non_blocking` first waits for all the
+    work queued on the stream, which would stall the encode pipeline."""
+    offset = torch.empty((3, 1, 1), dtype=torch.float32, device=x.device)
+    for i, value in enumerate(_YCBCR_OFFSET):
+        offset[i] = value
+    return offset
 
 
 def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,7 @@ can sum the shards' Grams and finish each shard on its own device.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import numpy as np
@@ -194,10 +195,29 @@ def _lapack_eigh(g: torch.Tensor):
     """
     with profiling.span("lrf.encode.init.gram_fetch", bytes_in=g.nbytes):
         host = g.detach().cpu().numpy()
+    evals, evecs = _syevd(host)
+    return torch.from_numpy(evals).to(g.device), torch.from_numpy(evecs).to(g.device)
+
+
+def _syevd(host: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """`_lapack_eigh`'s host part: the native batch under the gate and the
+    `lrf.encode.init.eigh` span."""
     one = host.shape[-1] <= _ONE_THREAD_MAX_N and _openblas_threads() is not None
     with _host_lapack(one), profiling.span("lrf.encode.init.eigh", bytes_in=host.nbytes, mirror=True):
-        evals, evecs = lapack_batch.syevd_batch(host, 0 if one else 1)
-    return torch.from_numpy(evals).to(g.device), torch.from_numpy(evecs).to(g.device)
+        return lapack_batch.syevd_batch(host, 0 if one else 1)
+
+
+def host_eigh(host: np.ndarray, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_lapack_eigh` of Grams the caller has already fetched to the host
+    (the encode pipeline, which starts their copy a batch ahead): the same
+    `?syevd` batch, its results sent to `device`. On a card they leave from
+    page-locked copies with `non_blocking`, so, unlike a pageable
+    `.to(device)`, the call does not wait for the work queued on the
+    stream."""
+    out = tuple(torch.from_numpy(a) for a in _syevd(host))
+    if device.type != "cuda":
+        return out
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in out)
 
 
 def _lapack_eigh_plain(g: torch.Tensor):
@@ -398,15 +418,28 @@ def shared_truncated_svd(stacks, ranks, method: str = "gram"):
     """Truncated SVDs of several same-N patch stacks through ONE batched eigh.
 
     `stacks`: `(B_i, M_i, N)` tensors sharing N. Their column Grams are all
-    `(N, N)`, so one `eigh` over the concatenated Gram batch serves every
-    stack. Returns a list of `(u, s, v)` like `truncated_svd`. Every method
-    takes this path, as in the JAX package, where the method picks only the
-    solver of the shared eigh: `"jacobi"` takes `jacobi_eigh`, and `"svd"`
-    and `"randomized"` give what `"gram"` gives.
+    `(N, N)`, so one `eigh` over the concatenated Gram batch (`shared_gram`)
+    serves every stack. Returns a list of `(u, s, v)` like `truncated_svd`.
+    Every method takes this path, as in the JAX package, where the method
+    picks only the solver of the shared eigh: `"jacobi"` takes
+    `jacobi_eigh`, and `"svd"` and `"randomized"` give what `"gram"` gives.
     """
     _check_method(method)
+    return shared_svd_from_eigh(stacks, ranks, *_gram_eig(shared_gram(stacks), method))
+
+
+def shared_gram(stacks) -> torch.Tensor:
+    """The `(sum B_i, N, N)` batch of several same-N stacks' `exact_gram`s,
+    in order: the input of `shared_truncated_svd`'s one eigh."""
+    return _flat_grams([exact_gram(x) for x in stacks])
+
+
+def shared_svd_from_eigh(stacks, ranks, evals, evecs):
+    """`shared_truncated_svd` from the ascending eigendecomposition of the
+    stacks' `shared_gram`, taken by the caller (the encode pipeline's
+    `host_eigh`)."""
     ranks = [min(r, x.shape[-2], x.shape[-1]) for x, r in zip(stacks, ranks)]
-    pairs = shared_top_pairs([exact_gram(x) for x in stacks], ranks, method)
+    pairs = _split_top_pairs(evals, evecs, [x.shape[:-2] for x in stacks], ranks)
     return [(left_factor(x, s, v), s, v) for x, (s, v) in zip(stacks, pairs)]
 
 
@@ -414,17 +447,27 @@ def shared_top_pairs(grams, ranks, method: str = "gram"):
     """The top `r` pairs `(s, v)` of several `(B_i, N, N)` Grams of one N,
     through one batched eigh (`_lapack_eigh`, or `jacobi_eigh` for
     "jacobi")."""
+    evals, evecs = _gram_eig(_flat_grams(grams), method)
+    return _split_top_pairs(evals, evecs, [g.shape[:-2] for g in grams], ranks)
+
+
+def _flat_grams(grams) -> torch.Tensor:
     n = grams[0].shape[-1]
     if any(g.shape[-1] != n for g in grams):
         raise ValueError("shared_truncated_svd needs stacks of one width N")
-    flat = [g.reshape(-1, n, n) for g in grams]
-    evals, evecs = _gram_eig(torch.cat(flat, dim=0), method)
+    return torch.cat([g.reshape(-1, n, n) for g in grams], dim=0)
+
+
+def _split_top_pairs(evals, evecs, leads, ranks):
+    """The top `r` pairs of each Gram batch of leading shape `lead`, in
+    order, from its slice of one eigendecomposition of them all."""
+    n = evals.shape[-1]
     out = []
     offset = 0
-    for g, f, r in zip(grams, flat, ranks):
-        size = f.shape[0]
-        ev = evals[offset : offset + size].reshape(g.shape[:-2] + (n,))
-        evec = evecs[offset : offset + size].reshape(g.shape[:-2] + (n, n))
+    for lead, r in zip(leads, ranks):
+        size = math.prod(lead)
+        ev = evals[offset : offset + size].reshape(lead + (n,))
+        evec = evecs[offset : offset + size].reshape(lead + (n, n))
         out.append(_top_from_eigh(ev, evec, r))
         offset += size
     return out

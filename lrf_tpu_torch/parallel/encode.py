@@ -35,7 +35,11 @@ factors are fetched and the host tail (`_serialize_batch`) turns them into
 finished streams in one native call (`native/fibercodec.cpp`: per-fiber
 DEFLATE and framing). Both give the same bytes.
 `sharded_qmf_encode_batches` pipelines many batches: device work and copies
-stay on the calling thread while two workers serialize earlier batches.
+stay on the calling thread while two workers serialize earlier batches. On
+one device under the exact shared init the encoder splits at the host eigh
+(its `start` and `finish`), and the pipeline starts batch i+1 (staged
+upload, front end, Grams and their copy to the host) before it finishes
+batch i, so the card has work queued while the host runs the eigh.
 Under a profiler both entry points record the `lrf.encode.*` spans of
 `utils/profiling.py`.
 """
@@ -46,7 +50,7 @@ import contextlib
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,18 +65,20 @@ from lrf_tpu_torch.models.container import (
 from lrf_tpu_torch.models.qmf import _channel_ranks, _padded_size
 from lrf_tpu_torch.native import fibercodec as _native
 from lrf_tpu_torch.ops import deflate as _deflate
-from lrf_tpu_torch.ops.bcd import sharded_bcd, sharded_svd_init, svd_init, svd_init_shared
+from lrf_tpu_torch.ops.bcd import sharded_bcd, sharded_svd_init, svd_init, svd_init_from_eigh, svd_init_shared
 from lrf_tpu_torch.ops.bcd_kernel import bcd, bcd_reference
 from lrf_tpu_torch.ops.color import rgb_to_ycbcr
 from lrf_tpu_torch.ops.pad import pad_image
 from lrf_tpu_torch.ops.patch import patchify
 from lrf_tpu_torch.ops.quantize import torch_dtype
 from lrf_tpu_torch.ops.resample import chroma_downsample, scaled_size
+from lrf_tpu_torch.ops.svd import host_eigh, shared_gram
 from lrf_tpu_torch.parallel.mesh import Mesh, as_mesh
 from lrf_tpu_torch.utils import profiling
 from lrf_tpu_torch.utils.transfer import HostCopy
 
 __all__ = [
+    "ENCODE_OVERLAP_COUNTS",
     "build_sharded_encoder",
     "sharded_qmf_encode_batch",
     "sharded_qmf_encode_batches",
@@ -84,6 +90,12 @@ __all__ = [
 # "torch": the plain PyTorch sweeps on any device (`bcd_reference`).
 _BACKENDS = ("auto", "kernel", "torch")
 _INITS = ("svd", "fast")
+
+# Batches of the one-device schedule: "staged" (host batches uploaded to a
+# card through the page-locked staging blocks), "overlapped" (started while
+# the previous batch still waited for its finish), and "ready" (finishes
+# whose Grams had reached the host before the wait for them began).
+ENCODE_OVERLAP_COUNTS = {"staged": 0, "overlapped": 0, "ready": 0}
 
 
 class _Deflated(tuple):
@@ -111,20 +123,43 @@ def _card_deflate(device: torch.device, dtype, batch, ms) -> bool:
         return max(ms) <= _deflate.KERNEL.max_fiber()
 
 
+class _Started(NamedTuple):
+    """A batch begun by the encoder's `start`: on one device under the exact
+    shared init, its stacks and their Grams on their way to the host, which
+    `finish` takes on from; elsewhere the batch's finished output."""
+
+    out: object = None
+    stacks: Optional[list] = None
+    ranks: tuple = ()
+    b: int = 0
+    grams: Optional[HostCopy] = None
+
+
 def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, backend, on_card, init):
     """The batched encode function for one config: `(B, 3, H, W)` -> the 6
     factors on the mesh's first device, or (`on_card`) the card's DEFLATE
-    output."""
+    output. Its `start` and `finish` split it at the host eigh, where a
+    batch takes the exact shared init on one device: `start` enqueues the
+    front end and the Grams and starts their copy to the host, and
+    `finish` runs the eigh and enqueues the rest."""
     run_bcd = bcd_reference if backend == "torch" else bcd
     method = "randomized" if init == "fast" else "gram"
+
+    def shared(stacks, merged) -> bool:
+        """Whether the stacks take the exact shared init: one eigh over
+        every stack's Grams, when they are merged and all tall."""
+        return init == "svd" and merged and all(x.shape[-2] >= x.shape[-1] for x in stacks)
 
     def factorize(stacks, stack_ranks, merged):
         """One device: the init, then one BCD run per stack."""
         with profiling.span("lrf.encode.init"):
-            if init == "svd" and merged and all(x.shape[-2] >= x.shape[-1] for x in stacks):
+            if shared(stacks, merged):
                 inits = svd_init_shared(stacks, stack_ranks, bounds=bounds)
             else:
                 inits = [svd_init(x, r, method=method, bounds=bounds) for x, r in zip(stacks, stack_ranks)]
+        return run_all(stacks, inits)
+
+    def run_all(stacks, inits):
         with profiling.span("lrf.encode.bcd"):
             return [run_bcd(x, i[0], i[1], num_iters=num_iters, bounds=bounds) for x, i in zip(stacks, inits)]
 
@@ -142,33 +177,32 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
                 out.append((torch.cat([u.to(devices[0], non_blocking=True) for u in us], dim=1), v))
         return out
 
-    def encode_row(images: torch.Tensor, devices):
+    def front_end(images: torch.Tensor):
+        """`(stacks, stack_ranks, merged)`: the patch stacks, Cb and Cr
+        merged into one where they share shape and rank."""
         with profiling.span("lrf.encode.frontend"):
             channels = chroma_downsample(rgb_to_ycbcr(images), scale_factor)
             stacks = [patchify(pad_image(c, patch_size), patch_size) for c in channels]
-        b = stacks[0].shape[0]
         merged = stacks[1].shape == stacks[2].shape and ranks[1] == ranks[2]
         if merged:
-            stacks, stack_ranks = [stacks[0], torch.cat(stacks[1:], dim=0)], ranks[:2]
-        else:
-            stack_ranks = ranks
-        if len(devices) > 1:
-            per_stack = factorize_sharded(stacks, stack_ranks, devices)
-        else:
-            per_stack = factorize(stacks, stack_ranks, merged)
+            return [stacks[0], torch.cat(stacks[1:], dim=0)], ranks[:2], merged
+        return stacks, ranks, merged
+
+    def cast(per_stack, merged, b):
         if merged:
             (u_y, v_y), (u_c, v_c) = per_stack
             per_stack = [(u_y, v_y), (u_c[:b], v_c[:b]), (u_c[b:], v_c[b:])]
         return [f.to(dtype) for uv in per_stack for f in uv]
 
-    def encode(images: torch.Tensor):
-        if len(mesh.devices) == 1:
-            parts = mesh.split_batch(images)
-        else:  # each row's part to its row: the batch's upload (`_to_device` leaves it where it is)
-            with profiling.span("lrf.encode.upload", bytes_in=images.nbytes):
-                parts = mesh.split_batch(images)
-        rows = mesh.map_rows(encode_row, parts)
-        factors = rows[0] if len(rows) == 1 else [torch.cat([r[k].to(mesh.first) for r in rows]) for k in range(6)]
+    def encode_row(images: torch.Tensor, devices):
+        stacks, stack_ranks, merged = front_end(images)
+        if len(devices) > 1:
+            per_stack = factorize_sharded(stacks, stack_ranks, devices)
+        else:
+            per_stack = factorize(stacks, stack_ranks, merged)
+        return cast(per_stack, merged, images.shape[0])
+
+    def output(factors):
         if on_card:
             side = _deflate.side_stream(mesh.first)
             side.wait_stream(torch.cuda.current_stream(mesh.first))
@@ -181,6 +215,43 @@ def _encoder(mesh, ranks, scale_factor, patch_size, bounds, num_iters, dtype, ba
             return out
         return tuple(factors)
 
+    def start(images: torch.Tensor) -> _Started:
+        if mesh.size == 1:
+            images = mesh.split_batch(images)[0]
+            stacks, stack_ranks, merged = front_end(images)
+            if shared(stacks, merged):
+                with profiling.span("lrf.encode.gram"):
+                    grams = HostCopy([shared_gram(stacks)])
+                return _Started(stacks=stacks, ranks=stack_ranks, b=images.shape[0], grams=grams)
+            return _Started(output(cast(factorize(stacks, stack_ranks, merged), merged, images.shape[0])))
+        if len(mesh.devices) == 1:
+            parts = mesh.split_batch(images)
+        else:  # each row's part to its row: the batch's upload (`_to_device` leaves it where it is)
+            with profiling.span("lrf.encode.upload", bytes_in=images.nbytes) as s:
+                if s is not None:
+                    s.attrs = {"pinned": False}
+                parts = mesh.split_batch(images)
+        rows = mesh.map_rows(encode_row, parts)
+        return _Started(output(rows[0] if len(rows) == 1 else
+                               [torch.cat([r[k].to(mesh.first) for r in rows]) for k in range(6)]))
+
+    def finish(started: _Started):
+        if started.grams is None:
+            return started.out
+        with profiling.span("lrf.encode.init"):
+            with profiling.span("lrf.encode.init.gram_fetch") as s:
+                ready = started.grams.ready()
+                (host,) = started.grams.wait()
+                if s is not None:
+                    s.bytes_in, s.attrs = host.nbytes, {"ready": ready}
+            ENCODE_OVERLAP_COUNTS["ready"] += ready
+            inits = svd_init_from_eigh(started.stacks, started.ranks, *host_eigh(host, mesh.first), bounds=bounds)
+        return output(cast(run_all(started.stacks, inits), True, started.b))
+
+    def encode(images: torch.Tensor):
+        return finish(start(images))
+
+    encode.start, encode.finish = start, finish
     return encode
 
 
@@ -272,15 +343,53 @@ def build_sharded_encoder(
     return fn, metadata, pack_spec
 
 
-def _to_device(images, mesh: Mesh) -> torch.Tensor:
+class _StagingRing:
+    """Page-locked blocks that carry input batches from host memory to a
+    card, used in turn. `upload` copies a batch into the next block
+    (torch's CPU `copy_`, spread over its intra-op threads with the GIL
+    released), enqueues the block's copy to the device with `non_blocking`
+    and records an event behind it. A block is written again only after
+    that event has passed, so a copy in flight never sees its source
+    change. A block is made at its first use, and again where the batch's
+    shape or dtype changes; torch's caching host allocator keeps the one it
+    replaces until its copy has ended."""
+
+    def __init__(self, blocks: int):
+        self._slots: list = [None] * blocks  # (block, event of its last copy)
+        self._turn = 0
+
+    def upload(self, x: torch.Tensor, device: torch.device) -> torch.Tensor:
+        k = self._turn
+        self._turn = (k + 1) % len(self._slots)
+        block, event = self._slots[k] or (None, None)
+        if block is not None and block.shape == x.shape and block.dtype == x.dtype:
+            event.synchronize()
+        else:
+            block = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        block.copy_(x)
+        out = block.to(device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        self._slots[k] = (block, event)
+        return out
+
+
+def _to_device(images, mesh: Mesh, ring: _StagingRing) -> torch.Tensor:
     """The batch as a tensor: on the device of a one-row mesh, else where it
-    is (`Mesh.split_batch` moves each row's part to its row)."""
+    is (`Mesh.split_batch` moves each row's part to its row). A host batch
+    bound for a one-device mesh on a card goes through `ring`."""
     if not isinstance(images, torch.Tensor):
         images = torch.from_numpy(np.ascontiguousarray(images))
     if len(mesh.devices) > 1:
         return images
-    with profiling.span("lrf.encode.upload", bytes_in=images.nbytes):
-        return images.to(mesh.first)
+    pinned = mesh.size == 1 and mesh.first.type == "cuda" and images.device.type == "cpu"
+    with profiling.span("lrf.encode.upload", bytes_in=images.nbytes) as s:
+        if s is not None:
+            s.attrs = {"pinned": pinned}
+        if not pinned:
+            return images.to(mesh.first)
+        ENCODE_OVERLAP_COUNTS["staged"] += 1
+        return ring.upload(images, mesh.first)
 
 
 def _start_fetch(out) -> HostCopy:
@@ -383,11 +492,9 @@ def sharded_qmf_encode_batch(
     root = profiling.begin("lrf.encode.batch", batch=0)
     try:
         with profiling.within(root):
-            images = _to_device(images, mesh)
-            b = int(images.shape[0])
-            size = (int(images.shape[-2]), int(images.shape[-1]))
+            b, size = int(images.shape[0]), (int(images.shape[-2]), int(images.shape[-1]))
             fn, metadata, pack_spec = build_sharded_encoder(mesh, size, quality=quality, rank=rank, batch=b, **config)
-            host_out = _fetch_encoded(_start_fetch(fn(images)), pack_spec)
+            host_out = _fetch_encoded(_start_fetch(fn(_to_device(images, mesh, _StagingRing(1)))), pack_spec)
             return _serialize_spanned(host_out, pack_spec, metadata, b)
     finally:
         profiling.end(root)
@@ -407,21 +514,36 @@ def sharded_qmf_encode_batches(
     encode is dispatched and its device -> pinned-host copy started on the
     calling thread, up to `depth` batches ahead of the fetch; fetched
     buffers go to two serializer workers (native, GIL-released C++), so
-    device work, copies and host DEFLATE overlap. The serializer workers
-    touch only numpy and the native library, never torch. The one
-    exception to keeping torch calls on the calling thread is a mesh with
-    several data rows: the encoder dispatches each row from a thread of its
-    own (`Mesh.map_rows`) and joins them before it returns. Streams equal
-    `sharded_qmf_encode_batch`'s. The arguments are in the JAX package's
-    order: `(batches, mesh, quality, rank, depth)`.
+    device work, copies and host DEFLATE overlap. On one device under the
+    exact shared init the calling thread runs one batch ahead: it stages
+    batch i+1's upload and enqueues its front end and Grams (the encoder's
+    `start`) before it runs batch i's host eigh and enqueues the rest
+    (`finish`), so the card works on batch i+1 during that eigh. Host
+    batches bound for a card go through two page-locked staging blocks:
+    batch i's finish waits for its Grams, which the stream computes after
+    batch i's upload, so batch i+2 finds batch i's block free. The
+    serializer workers touch only numpy and the native library, never
+    torch. The one exception to keeping torch calls on the calling thread
+    is a mesh with several data rows: the encoder dispatches each row from
+    a thread of its own (`Mesh.map_rows`) and joins them before it returns.
+    Streams equal `sharded_qmf_encode_batch`'s. The arguments are in the
+    JAX package's order: `(batches, mesh, quality, rank, depth)`.
     """
     if depth < 1:
         raise ValueError("depth must be >= 1")
     mesh = as_mesh(device)
     profiling.follow_profiler()
+    ring = _StagingRing(2)
     with ThreadPoolExecutor(max_workers=2) as pool:
+        started = None  # (fn, _Started, pack_spec, metadata, b, root span): begun, not finished
         in_flight = deque()  # (copy, pack_spec, metadata, b, root span)
         pending = deque()  # (future of list[bytes], root span), in batch order
+
+        def finish(fn, begun, pack_spec, metadata, b, root):
+            with profiling.within(root):
+                in_flight.append((_start_fetch(fn.finish(begun)), pack_spec, metadata, b, root))
+            if len(in_flight) > depth:
+                drain_one()
 
         def drain_one():
             copy, pack_spec, metadata, b, root = in_flight.popleft()
@@ -441,17 +563,22 @@ def sharded_qmf_encode_batches(
             profiling.follow_profiler()
             root = profiling.begin("lrf.encode.batch", batch=seq)
             with profiling.within(root):
-                images = _to_device(images, mesh)
-                b = int(images.shape[0])
-                size = (int(images.shape[-2]), int(images.shape[-1]))
+                b, size = int(images.shape[0]), (int(images.shape[-2]), int(images.shape[-1]))
                 fn, metadata, pack_spec = build_sharded_encoder(
                     mesh, size, quality=quality, rank=rank, batch=b, **config
                 )
-                in_flight.append((_start_fetch(fn(images)), pack_spec, metadata, b, root))
-            if len(in_flight) > depth:
-                drain_one()
+                begun = fn.start(_to_device(images, mesh, ring))
+            if started is not None:
+                ENCODE_OVERLAP_COUNTS["overlapped"] += 1
+                finish(*started)
+            started = (fn, begun, pack_spec, metadata, b, root)
+            if begun.grams is None:  # nothing left to overlap
+                finish(*started)
+                started = None
             while len(pending) > 2:
                 yield result()
+        if started is not None:
+            finish(*started)
         while in_flight:
             drain_one()
         while pending:

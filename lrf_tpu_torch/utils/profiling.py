@@ -23,10 +23,11 @@ The spans of one pipeline call:
 | Span | What it covers | Bytes |
 | --- | --- | --- |
 | `lrf.encode.batch` | root: from taking a batch to submitting its fetched factors | |
-| `lrf.encode.upload` | the input batch to the device (pageable) | in: the batch |
+| `lrf.encode.upload` | the input batch to the device; `attrs`: `pinned` (copied into a page-locked staging block, whose copy to the card is enqueued, not pageable) | in: the batch |
 | `lrf.encode.frontend` | color, chroma pool, pad, patchify: host time to enqueue | |
-| `lrf.encode.init` | the init of every stack | |
-| `lrf.encode.init.gram_fetch` | the Grams to the host (waits for them) | in: the Grams |
+| `lrf.encode.gram` | the exact shared init's Grams enqueued and their copy to the host started (the encoder's `start`, a batch ahead of its init) | |
+| `lrf.encode.init` | the init of every stack: from the wait for the Grams where `lrf.encode.gram` started them, else from forming them | |
+| `lrf.encode.init.gram_fetch` | the Grams to the host: the wait for their copy (`attrs`: `ready`, it had ended before the wait), or the copy and its wait | in: the Grams |
 | `lrf.encode.init.eigh` | the host `?syevd` batch alone | in: the Grams |
 | `lrf.encode.bcd` | the BCD runs (host time to enqueue) | |
 | `lrf.encode.bcd.launch` | one BCD dispatch (`ops/bcd_kernel.py::bcd`); `attrs`: `route` (`bcd_cluster`, `bcd_cluster_wide`, `bcd_grid`, `bcd`, or `reference` for the plain version on the CPU) and `shape` `(B, M, N, R)` | |
@@ -104,7 +105,7 @@ class Span:
     bytes_out: Optional[int] = None
     row: Optional[int] = None  # a data mesh's row
     mirrored: bool = False  # also a `record_function` in the profiler
-    attrs: Optional[dict] = None  # route and shape (BCD), M and fibers (DEFLATE), pinned and ready (to_host)
+    attrs: Optional[dict] = None  # route and shape (BCD), M and fibers (DEFLATE), pinned and ready (copies)
 
 
 class _Recorder:

@@ -88,6 +88,10 @@ class HostCopy:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(device))
 
+    def ready(self) -> bool:
+        """Whether the copies have ended (CPU tensors' always have)."""
+        return self._event is None or self._event.query()
+
     def wait(self) -> list[np.ndarray]:
         if self._event is not None:
             self._event.synchronize()

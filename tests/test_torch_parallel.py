@@ -8,7 +8,11 @@
   the same factors, under each fiber coder, and the plain pure-Python
   serializer's under "zlib".
 - The pipelined encoder gives the one-shot streams, in order, across image
-  sizes, at depths 1 and 2.
+  sizes, at depths 1 and 2. Where it runs a batch ahead (one device, the
+  exact shared init) it gives them at depths 1-3 over feeds of 1, 2 and 5
+  batches, under "svd" and "fast", and from one buffer overwritten in
+  place between batches; batch i+1's upload begins before batch i's eigh.
+  On a card, 12 batches pass through the two staging blocks unharmed.
 - The batched encoders take the JAX package's argument order.
 - Batched decode takes the packed upload and equals per-image decode; so
   does the pipelined decode; the JAX package decodes the port's streams to
@@ -33,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch.profiler import ProfilerActivity, profile
 
 import lrf_tpu_torch as lt
 from lrf_tpu_torch.models import container as tc
@@ -40,6 +45,7 @@ from lrf_tpu_torch.native import fibercodec as tnative
 from lrf_tpu_torch.parallel import decode as tdec
 from lrf_tpu_torch.parallel import encode as tenc
 from lrf_tpu_torch.parallel.mesh import make_mesh
+from lrf_tpu_torch.utils import profiling
 from lrf_tpu_torch.utils.transfer import HostCopy
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "experiments", "data")
@@ -178,6 +184,78 @@ def test_pipelined_encode_matches_one_shot(batch, depth):
         next(lt.sharded_qmf_encode_batches(batches, device="cpu", depth=0, **KW))
 
 
+@pytest.fixture(scope="module")
+def tall_batches():
+    """Five batches of two 128x128 crops, all different: every stack is tall
+    (chroma M = 64 = N), so each batch takes the exact shared init, which
+    the pipeline runs one batch ahead."""
+    photos = _photos(10, 128, 128)
+    return [photos[2 * k : 2 * k + 2] for k in range(5)]
+
+
+@pytest.fixture(scope="module")
+def one_shot(tall_batches):
+    """`one_shot(init)`: each of `tall_batches` through `sharded_qmf_encode_batch`."""
+    made = {}
+
+    def streams(init):
+        if init not in made:
+            made[init] = [lt.sharded_qmf_encode_batch(x, device="cpu", init=init, **KW) for x in tall_batches]
+        return made[init]
+
+    return streams
+
+
+@pytest.mark.parametrize("init", ["svd", "fast"])
+@pytest.mark.parametrize("n", [1, 2, 5])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_run_ahead_pipeline_matches_one_shot(tall_batches, one_shot, depth, n, init):
+    # batch i+1 started before batch i's eigh (or, under "fast", each batch
+    # in turn): the same streams, in order, at every depth and feed length
+    got = list(tenc.sharded_qmf_encode_batches(tall_batches[:n], device="cpu", depth=depth, init=init, **KW))
+    assert got == one_shot(init)[:n]
+
+
+@pytest.mark.parametrize("init", ["svd", "fast"])
+def test_run_ahead_pipeline_copies_each_batch_in_its_own_start(tall_batches, one_shot, init):
+    # One buffer overwritten in place before each yield: every batch is read
+    # from the caller's array while it is started, and nothing is kept by
+    # the array's address, so the streams are those of distinct arrays.
+    buffer = np.empty_like(tall_batches[0])
+
+    def feed():
+        for x in tall_batches:
+            buffer[...] = x
+            yield buffer
+
+    assert list(tenc.sharded_qmf_encode_batches(feed(), device="cpu", depth=2, init=init, **KW)) == one_shot(init)
+
+
+@pytest.mark.parametrize("init", ["svd", "fast"])
+def test_next_batch_starts_before_the_eigh(tall_batches, init):
+    # Under the exact shared init, batch i+1's upload begins before batch
+    # i's host eigh, and every batch but the first is counted as started
+    # ahead; CPU Grams never wait, and nothing is staged. Under "fast" (no
+    # host eigh to hide) each batch is finished before the next is taken.
+    before = dict(tenc.ENCODE_OVERLAP_COUNTS)
+    profiling.snapshot(clear=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        list(tenc.sharded_qmf_encode_batches(tall_batches, device="cpu", init=init, **KW))
+    profiling.follow_profiler()
+    spans = profiling.snapshot(clear=True)
+    first = {}
+    for s in sorted(spans, key=lambda s: s.start_ns):
+        first.setdefault((s.name, s.batch), s.start_ns)
+    n = len(tall_batches)
+    counts = {k: tenc.ENCODE_OVERLAP_COUNTS[k] - before[k] for k in before}
+    if init == "svd":
+        assert all(first["lrf.encode.upload", i + 1] < first["lrf.encode.init.eigh", i] for i in range(n - 1))
+        assert counts == {"staged": 0, "overlapped": n - 1, "ready": n}
+    else:
+        assert all(first["lrf.encode.fetch_start", i] < first["lrf.encode.upload", i + 1] for i in range(n - 1))
+        assert counts == {"staged": 0, "overlapped": 0, "ready": 0}
+
+
 def test_jax_style_positional_arguments(batch):
     # The JAX package's order: (images, mesh, quality, rank) and
     # (batches, mesh, quality, rank, depth).
@@ -294,6 +372,32 @@ def test_pipelined_encode_on_gpu_matches_one_shot():
     dec = [lt.sharded_qmf_decode_batch(s) for s in want]
     for got, d in zip(lt.sharded_qmf_decode_batches(want), dec):
         np.testing.assert_array_equal(got, d)
+
+
+@pytest.mark.cuda
+def test_run_ahead_pipeline_on_gpu_reuses_its_staging_blocks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the BCD kernel has no CPU mode)")
+    # 12 distinct batches at depth 3 through the two staging blocks, fed
+    # from one buffer overwritten in place: each stream is the one-shot
+    # encode's of its own batch, every batch is staged, and the Grams'
+    # waits are counted
+    rng = np.random.default_rng(9)
+    base = _photos(4, 128, 192)
+    batches = [np.clip(base.astype(np.int16) + rng.integers(-4, 5, base.shape), 0, 255).astype(np.uint8)
+               for _ in range(12)]
+    want = [lt.sharded_qmf_encode_batch(x, quality=10) for x in batches]
+    buffer = np.empty_like(base)
+
+    def feed():
+        for x in batches:
+            buffer[...] = x
+            yield buffer
+
+    before = dict(tenc.ENCODE_OVERLAP_COUNTS)
+    assert list(tenc.sharded_qmf_encode_batches(feed(), quality=10, depth=3)) == want
+    counts = {k: tenc.ENCODE_OVERLAP_COUNTS[k] - before[k] for k in before}
+    assert counts["staged"] == 12 and counts["overlapped"] == 11 and 0 <= counts["ready"] <= 12
 
 
 @pytest.mark.cuda

@@ -16,7 +16,11 @@ On the CPU here:
 - `lt.trace()` writes the worker threads' spans into its Chrome trace, on
   its clock;
 - each `lrf.decode.to_host` span carries the `pinned` and `ready`
-  attributes of its batch's pixel copy (on the card too).
+  attributes of its batch's pixel copy (on the card too);
+- each `lrf.encode.upload` span carries `pinned` (a staged upload to a
+  card) and each `lrf.encode.init.gram_fetch` span of the run-ahead
+  pipeline `ready` (its Grams were on the host before the wait), on the
+  card too.
 
 On the card (`cuda`: `python -m pytest --noconftest -m cuda
 tests/test_torch_tracing.py`): the same pipelines' spans on the card's
@@ -39,7 +43,8 @@ from lrf_tpu_torch.parallel.mesh import make_mesh
 from lrf_tpu_torch.utils import profiling
 
 ENCODE = (
-    "lrf.encode.batch", "lrf.encode.upload", "lrf.encode.frontend", "lrf.encode.init", "lrf.encode.init.gram_fetch",
+    "lrf.encode.batch", "lrf.encode.upload", "lrf.encode.frontend", "lrf.encode.gram", "lrf.encode.init",
+    "lrf.encode.init.gram_fetch",
     "lrf.encode.init.eigh", "lrf.encode.bcd", "lrf.encode.fetch_start", "lrf.encode.fetch_wait",
     "lrf.encode.serializer_queue", "lrf.encode.serialize", "lrf.encode.result_wait",
 )
@@ -239,3 +244,56 @@ def test_card_spans_fake_no_device_time():
     assert device and not [e.name for e in device if e.name.startswith("lrf.")]
     assert {s.name for s in spans} >= set(ENCODE) | set(DECODE)
     _mirrors_match(prof, spans, threading.get_native_id())
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_upload_and_gram_fetch_spans_carry_their_attrs(traced, device):
+    spans = traced[3]
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device and nvcc (the BCD kernel has no CPU mode)")
+        profiling.snapshot(clear=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            list(sharded_qmf_encode_batches(_batches(3), device="cuda", quality=10))
+        profiling.follow_profiler()
+        spans = profiling.snapshot(clear=True)
+    uploads = [s for s in spans if s.name == "lrf.encode.upload"]
+    fetches = [s for s in spans if s.name == "lrf.encode.init.gram_fetch"]
+    assert len(uploads) == len(fetches) == 3
+    for s in uploads:
+        assert s.attrs == {"pinned": device == "cuda"}, s
+    for s in fetches:
+        assert set(s.attrs) == {"ready"} and isinstance(s.attrs["ready"], bool), s
+        assert s.attrs["ready"] or device == "cuda", s  # CPU Grams never wait
+
+
+def test_gram_ready_pct_reads_the_ready_fetches(monkeypatch):
+    # The benchmark's `gram_ready_pct` on recorder contents worked out by
+    # hand: of the traced part's gram fetches that carry `ready`, the share
+    # that is true; nothing to read without such spans or outside an
+    # encode cell's traced run.
+    from portbench import cells
+    from portbench.harness import Context
+    from portbench.trace import Summary
+
+    t0 = 1000.0  # the traced part, 1000 s to 1005 s on perf_counter
+
+    def fetch(at_s, ready=None):
+        ns = int(at_s * 1e9)
+        attrs = None if ready is None else {"ready": ready}
+        return profiling.Span("lrf.encode.init.gram_fetch", 1, None, 0, 1, "t", ns, ns + 1000, attrs=attrs)
+
+    spans = [fetch(t0 + 0.1, True), fetch(t0 + 0.2, True), fetch(t0 + 0.3, False), fetch(t0 + 0.4, True),
+             fetch(t0 - 1.0, False), fetch(t0 + 0.5)]  # one before the traced part, one without the attribute
+    read = cells.Cell.reader(None, "gram_ready_pct")
+
+    def ctx(kind="encode", traced=True):
+        trace = Summary(5.0, {0: 1.0}, {}, {}, []) if traced else None
+        return Context(kind, 1.0, 30.0, t0 - 9.0, t0 + 21.0, [], ["cuda:0"], {}, {}, trace=trace,
+                       traced=(t0, t0 + 5.0) if traced else None)
+
+    monkeypatch.setattr(profiling, "snapshot", lambda clear=False: list(spans))
+    assert read(ctx()) == 75.0
+    assert read(ctx("decode")) is None and read(ctx(traced=False)) is None
+    spans[:4] = []
+    assert read(ctx()) is None  # no fetch in the traced part carries `ready`, as before the run-ahead schedule

@@ -5,7 +5,8 @@
 Imports `lrf_tpu_torch` from TREE (default: this checkout) and prints one
 JSON object: a sha256 per call over the per-image `qmf_encode` streams, the
 batched encode on one device, on a data mesh of `["cpu"] * 8` and on the
-patch meshes 4 x 2 and 1 x 8, the `*_batches` pipeline, and the pixels of
+patch meshes 4 x 2 and 1 x 8, the `*_batches` pipeline on a data mesh and,
+over 128x128 crops, on one device, and the pixels of
 each decode; then over odd-size crops (61x93, whose chroma does not halve
 evenly): the `qmf_encode` streams in YCbCr and in RGB, the `svd_encode`
 streams in both color spaces, and the `hosvd_encode` and
@@ -61,6 +62,9 @@ def digests() -> dict:
     halves = [batch[:4], batch[4:]]
     out["batches data 4"] = _sha(s for part in lt.sharded_qmf_encode_batches(
         halves, device=lt.make_mesh(devices=["cpu"] * 4), **kw) for s in part)
+    tall = photos(6, 128, 128, seed=5)  # tall stacks: the exact shared init, one batch run ahead
+    out["batches cpu 128x128"] = _sha(s for part in lt.sharded_qmf_encode_batches(
+        [tall[:2], tall[2:4], tall[4:]], device="cpu", **kw) for s in part)
     odd = photos(4, 61, 93, seed=11)
     for cs in ("YCbCr", "RGB"):
         out[f"qmf_encode 61x93 {cs}"] = _sha(lt.qmf_encode(img, device="cpu", color_space=cs, **kw) for img in odd)
